@@ -1,0 +1,51 @@
+"""Carry search state from the JAX package to the port.
+
+This system has no weights: its state is the packed database and the query
+profiles, and both packages compute from the same state. The functions here
+read plain attributes and NumPy arrays; they import nothing from JAX.
+"""
+from __future__ import annotations
+
+from dataclasses import fields
+
+import numpy as np
+import torch
+
+# The reference's kernel names -> the port's.
+_KERNELS = {"auto": "auto", "scan": "plain", "pallas": "cuda"}
+
+
+def params_from_reference(ref_params):
+    """The port's ``SearchParams`` with a ``libssa_tpu`` params' values."""
+    from .search.manager import SearchParams
+
+    kw = {f.name: getattr(ref_params, f.name) for f in fields(SearchParams)}
+    kw["kernel"] = _KERNELS.get(kw["kernel"], kw["kernel"])
+    return SearchParams(**kw)
+
+
+def engine_from_reference(ref_engine, device):
+    """The port's engine over a ``libssa_tpu`` engine's database and scoring."""
+    from .search.manager import SearchEngine
+
+    return SearchEngine(
+        ref_engine.db, ref_engine.matrix, ref_engine.gap_open,
+        ref_engine.gap_extend, params_from_reference(ref_engine.params),
+        device=device,
+    )
+
+
+def stacks_to_device(grouped, device) -> tuple:
+    """``SequenceDB.grouped_stacks`` output as device tensors.
+
+    Each group becomes ``(codes (g, n_pad, B) int8, lengths (g, B) int32,
+    seq ids (g, B) int32)``, -1 marking padding lanes.
+    """
+    return tuple(
+        (
+            torch.as_tensor(np.ascontiguousarray(c, dtype=np.int8)).to(device),
+            torch.as_tensor(np.ascontiguousarray(l, dtype=np.int32)).to(device),
+            torch.as_tensor(np.stack(sids).astype(np.int32)).to(device),
+        )
+        for c, l, sids in grouped
+    )

@@ -1,0 +1,172 @@
+"""K1's wrapper: the counterpart of ``libssa_tpu/ops/interseq_pallas.py``.
+
+``interseq_pairs_cuda`` scores every (query, chunk) pair of one stack group
+with one K1 launch (``csrc/interseq.cu``), or a few where the inter-strip
+scratch would pass ``SCRATCH_BUDGET``. On CPU tensors it runs the plain
+PyTorch version (``interseq.interseq_pairs``); on CUDA tensors it launches K1
+or raises. Nothing falls back.
+
+K1 computes in int32 unless ``dtype`` is "int64" or the a-priori bound on
+|H| reaches 2**31 - 1 (``interseq.compute_dtype``: int32 is exact wherever
+the reference's f32 was, but would wrap past 2**31 where f32 saturated);
+then it runs its int64 instantiation and the outputs are int64.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import interseq
+
+SOURCE = "interseq.cu"
+SCRATCH_BUDGET = 1 << 30  # bytes of strip-edge scratch per engine
+MAX_PAIRS_PER_LAUNCH = 65535  # the grid's y limit
+
+launches = 0  # K1 launches made by this process; set to 0 to start a count
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    from ..util import cudabuild
+
+    lib = cudabuild.load(SOURCE)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.k1_interseq.argtypes = [
+        p, i, p, p, i, i, p, p, p, i, ll, ll, i, i, i, p, p, p, p, p,
+    ]
+    lib.k1_interseq.restype = i
+    lib.k1_strip_rows.argtypes = [i]
+    lib.k1_strip_rows.restype = i
+    return lib
+
+
+def _check(name, t, dtype, shape, device):
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: expected device {device}, got {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def interseq_pairs_cuda(
+    profiles: torch.Tensor,  # (n_queries, m, 32) int32
+    codes: torch.Tensor,  # (g, n_pad, B) int8
+    lengths: torch.Tensor,  # (g, B) int32
+    iq: torch.Tensor,  # (P,) int32 query of each pair
+    ic: torch.Tensor,  # (P,) int32 chunk of each pair
+    m_reals: torch.Tensor,  # (n_queries,) int32, 1 <= m_real <= m
+    gap_q,
+    gap_r,
+    local: bool = True,
+    track_range: bool = False,
+    dtype="int32",
+    max_abs: int | None = None,
+    scratch: torch.Tensor | None = None,
+):
+    """``(scores, hi, lo)``, each (P, B), for every pair of a stack group.
+
+    ``max_abs`` bounds |profile entry| (read from ``profiles`` when None,
+    which costs a device sync). ``scratch`` is a uint8 buffer on the card
+    for the strip-edge rows, reused across calls; when None or too small
+    for one pair, the call allocates its own.
+    """
+    global launches
+    dev = profiles.device
+    if dev.type == "cpu":
+        return interseq.interseq_pairs(
+            profiles, codes, lengths, iq, ic, m_reals, gap_q, gap_r,
+            local=local, track_range=track_range, dtype=dtype, max_abs=max_abs,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"K1 takes CUDA or CPU tensors, got {dev}")
+    if profiles.dim() != 3 or codes.dim() != 3:
+        raise ValueError("profiles and codes must be 3-d")
+    nq, m = profiles.shape[0], profiles.shape[1]
+    g, n_pad, B = codes.shape
+    P = iq.shape[0]
+    _check("profiles", profiles, torch.int32, (nq, m, 32), dev)
+    _check("codes", codes, torch.int8, (g, n_pad, B), dev)
+    _check("lengths", lengths, torch.int32, (g, B), dev)
+    _check("iq", iq, torch.int32, (P,), dev)
+    _check("ic", ic, torch.int32, (P,), dev)
+    _check("m_reals", m_reals, torch.int32, (nq,), dev)
+    if m == 0:
+        raise ValueError("profiles need at least one row")
+    Q, R = int(gap_q), int(gap_r)
+    if max_abs is None:
+        max_abs = interseq._max_abs(profiles)
+    out_t = interseq.compute_dtype(dtype, max_abs, m, n_pad, Q, R)
+    wide = out_t == torch.int64
+    scores = torch.empty((P, B), dtype=out_t, device=dev)
+    hi = torch.empty_like(scores)
+    lo = torch.empty_like(scores)
+    if P == 0 or B == 0:
+        return scores, hi, lo
+    lib = _lib()
+    step = min(P, MAX_PAIRS_PER_LAUNCH)
+    scratch_ptr = None
+    if m > lib.k1_strip_rows(int(wide)):  # rows cross a strip edge
+        per_pair = 2 * n_pad * B * scores.element_size()
+        if scratch is not None:
+            _check("scratch", scratch, torch.uint8, (scratch.numel(),), dev)
+        if scratch is None or scratch.numel() < per_pair:
+            scratch = torch.empty(
+                min(P, max(1, SCRATCH_BUDGET // per_pair)) * per_pair,
+                dtype=torch.uint8, device=dev,
+            )
+        step = min(step, scratch.numel() // per_pair)
+        scratch_ptr = scratch.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for p0 in range(0, P, step):
+            p1 = min(P, p0 + step)
+            rc = lib.k1_interseq(
+                profiles.data_ptr(), m, codes.data_ptr(), lengths.data_ptr(),
+                n_pad, B, iq[p0:p1].data_ptr(), ic[p0:p1].data_ptr(),
+                m_reals.data_ptr(), p1 - p0, Q, R, int(local),
+                int(track_range), int(wide), scores[p0:p1].data_ptr(),
+                hi[p0:p1].data_ptr(), lo[p0:p1].data_ptr(), scratch_ptr,
+                stream,
+            )
+            if rc != 0:
+                raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
+            launches += 1
+    return scores, hi, lo
+
+
+def interseq_scores_cuda(
+    profile: torch.Tensor,  # (m, 32) int32
+    subjects_T: torch.Tensor,  # (n_pad, B) int8
+    lengths: torch.Tensor,  # (B,) int32
+    gap_q,
+    gap_r,
+    local: bool = True,
+    use_matmul: bool = True,
+    track_range: bool = False,
+    dtype="int32",
+    m_real: int | None = None,
+):
+    """Drop-in for ``interseq.interseq_scores``: one query, one K1 launch."""
+    if profile.device.type == "cpu":
+        return interseq.interseq_scores(
+            profile, subjects_T, lengths, gap_q, gap_r, local=local,
+            use_matmul=use_matmul, track_range=track_range, dtype=dtype,
+            m_real=m_real,
+        )
+    m = profile.shape[0]
+    mr = m if m_real is None else int(m_real)
+    if not 1 <= mr <= m:
+        raise ValueError(f"m_real {mr} out of range for profile rows {m}")
+    dev = profile.device
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    s, hi, lo = interseq_pairs_cuda(
+        profile[None], subjects_T[None], lengths[None], zero, zero,
+        torch.tensor([mr], dtype=torch.int32, device=dev), gap_q, gap_r,
+        local=local, track_range=track_range, dtype=dtype,
+    )
+    return s[0], hi[0], lo[0]

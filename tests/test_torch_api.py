@@ -1,0 +1,236 @@
+"""``libssa_tpu_torch.api`` against ``libssa_tpu.api`` on the test fixtures.
+
+Both contexts get the same configuration and queries; hit lists must be
+equal field by field (ids, scores, strands and frames, coordinates,
+cigars, aligned rows), and so must the search statistics.
+"""
+import json
+import shutil
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from libssa_tpu import api as jax_api
+from libssa_tpu import cli as jax_cli
+from libssa_tpu.constants import AlignType, BitWidth, ComputeMode, Strand, SymType
+from libssa_tpu_torch import api, cli
+
+torch.set_num_threads(1)
+
+TESTDATA = Path(__file__).parent / "testdata"
+
+
+def _fixture(tmp_path, name):
+    """A private copy, so packed-DB caches never race other test workers."""
+    dst = tmp_path / name
+    shutil.copy(TESTDATA / name, dst)
+    return str(dst)
+
+
+def _contexts(tmp_path, db="proteins.fas", symtype=SymType.AMINOACID,
+              strands=Strand.FORWARD, db_symtype=None, constant=None,
+              gaps=(10, 1), chunk=16):
+    db_path = _fixture(tmp_path, db)
+    out = []
+    for ctx in (jax_api.SSAContext(), api.SSAContext(device="cpu")):
+        ctx.init_symbol_translation(symtype, strands, 1, 1, db_symtype=db_symtype)
+        if constant:
+            ctx.init_constant_scoring(*constant)
+        else:
+            ctx.init_score_matrix("BLOSUM62")
+        ctx.init_gap_penalties(*gaps)
+        ctx.init_db_fasta(db_path)
+        ctx.set_chunk_size(chunk)
+        out.append(ctx)
+    return out
+
+
+def _hits(hl):
+    return [
+        (h.seq_id, h.header, h.score, h.align_type, h.strand, h.db_frame,
+         h.q_begin, h.q_end, h.s_begin, h.s_end, h.cigar, h.aligned)
+        for h in hl
+    ]
+
+
+def _stats(st):
+    return (st.cells, st.subjects, st.rescored, st.notes, st.aligner_cells)
+
+
+def _same(port_hl, ref_hl):
+    assert _hits(port_hl) == _hits(ref_hl)
+    assert _stats(port_hl.stats) == _stats(ref_hl.stats)
+    assert len(port_hl) > 0
+
+
+@pytest.mark.parametrize("mode", [ComputeMode.SCORE, ComputeMode.ALIGNMENT],
+                         ids=["score", "alignment"])
+@pytest.mark.parametrize("bw", [BitWidth.EXACT, BitWidth.BIT8, BitWidth.BIT16],
+                         ids=lambda b: b.name)
+@pytest.mark.parametrize("algo", ["sw", "nw"])
+def test_protein_search_matches(tmp_path, algo, bw, mode):
+    ref, port = _contexts(tmp_path)
+    qfile = _fixture(tmp_path, "query_prot.fas")
+    q_ref, q_port = ref.init_sequence_fasta(qfile), port.init_sequence_fasta(qfile)
+    fn = "sw_align" if algo == "sw" else "nw_align"
+    want = getattr(ref, fn)(q_ref, 10, bw, mode)
+    got = getattr(port, fn)(q_port, 10, bw, mode)
+    _same(got, want)
+    if mode is ComputeMode.ALIGNMENT:
+        assert all(h.cigar for h in got)
+
+
+@pytest.mark.parametrize("mode", [ComputeMode.SCORE, ComputeMode.ALIGNMENT],
+                         ids=["score", "alignment"])
+def test_align_many_matches(tmp_path, mode):
+    ref, port = _contexts(tmp_path)
+    qfile = _fixture(tmp_path, "proteins.fas")
+    q_ref = ref.init_sequences_fasta(qfile)[:5]
+    q_port = port.init_sequences_fasta(qfile)[:5]
+    for algo in (AlignType.SW, AlignType.NW):
+        want = ref.align_many(q_ref, 6, mode, algo, BitWidth.BIT8)
+        got = port.align_many(q_port, 6, mode, algo, BitWidth.BIT8)
+        assert len(got) == len(want) == 5
+        for g, w in zip(got, want):
+            _same(g, w)
+
+
+def test_nucleotide_both_strands_matches(tmp_path):
+    ref, port = _contexts(
+        tmp_path, db="nucleotides.fas", symtype=SymType.NUCLEOTIDE,
+        strands=Strand.BOTH, constant=(5, -4), gaps=(10, 2),
+    )
+    qfile = _fixture(tmp_path, "query_nt.fas")
+    q_ref, q_port = ref.init_sequence_fasta(qfile), port.init_sequence_fasta(qfile)
+    assert len(q_port.sequences) == 2
+    for mode in (ComputeMode.SCORE, ComputeMode.ALIGNMENT):
+        _same(port.sw_align(q_port, 8, mode=mode), ref.sw_align(q_ref, 8, mode=mode))
+        _same(port.nw_align(q_port, 8, mode=mode), ref.nw_align(q_ref, 8, mode=mode))
+    strands = {h.strand for h in port.sw_align(q_port, 8)}
+    assert strands <= {"+", "-"}
+
+
+def test_translated_query_matches(tmp_path):
+    """blastx-style: nucleotide query frames against the protein fixture."""
+    ref, port = _contexts(
+        tmp_path, symtype=SymType.NUCLEOTIDE, strands=Strand.BOTH,
+        db_symtype=SymType.AMINOACID,
+    )
+    qfile = _fixture(tmp_path, "query_nt.fas")
+    q_ref, q_port = ref.init_sequence_fasta(qfile), port.init_sequence_fasta(qfile)
+    for bw in (BitWidth.EXACT, BitWidth.BIT8):
+        _same(port.sw_align(q_port, 6, bw, ComputeMode.ALIGNMENT),
+              ref.sw_align(q_ref, 6, bw, ComputeMode.ALIGNMENT))
+
+
+def test_translated_db_matches(tmp_path):
+    """tblastn-style: protein query against the nucleotide fixture's frames."""
+    ref, port = _contexts(
+        tmp_path, db="nucleotides.fas", symtype=SymType.AMINOACID,
+        db_symtype=SymType.NUCLEOTIDE,
+    )
+    qfile = _fixture(tmp_path, "query_prot.fas")
+    q_ref, q_port = ref.init_sequence_fasta(qfile), port.init_sequence_fasta(qfile)
+    for algo in ("sw_align", "nw_align"):
+        got = getattr(port, algo)(q_port, 6, mode=ComputeMode.ALIGNMENT)
+        _same(got, getattr(ref, algo)(q_ref, 6, mode=ComputeMode.ALIGNMENT))
+        assert all(h.db_frame for h in got)
+
+
+def test_align_pair_matches(tmp_path):
+    ref, port = _contexts(tmp_path)
+    q_ref = ref.init_sequence_fasta("MKVLAAGIVGWKQTERNDCFYHH")
+    q_port = port.init_sequence_fasta("MKVLAAGIVGWKQTERNDCFYHH")
+    for at in (AlignType.NW, AlignType.SW):
+        a, b = port.align_pair(q_port, "AAGIVGWKQTE", at), ref.align_pair(q_ref, "AAGIVGWKQTE", at)
+        assert _hits([a]) == _hits([b])
+        assert a.stats.aligner_cells == b.stats.aligner_cells
+
+
+def test_later_slices_raise_not_implemented(tmp_path, monkeypatch):
+    from libssa_tpu.search import aligner
+
+    _, port = _contexts(tmp_path)
+    q = port.init_sequence_fasta(_fixture(tmp_path, "query_prot.fas"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        port.set_device_count(2)
+    port.set_device_count(1)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        port.align_pair(q, "MKVLAAGW", AlignType.SW, ComputeMode.SCORE)
+    monkeypatch.setattr(aligner, "MATRIX_CELL_LIMIT", 100)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        port.sw_align(q, 3, mode=ComputeMode.ALIGNMENT)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        port.align_pair(q, "MKVLAAGW" * 10, AlignType.NW)
+    assert len(port.sw_align(q, 3)) == 3  # SCORE mode needs no traceback
+
+
+def test_device_must_be_explicit():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.SSAContext()
+    assert api.SSAContext(device="cpu").device.type == "cpu"
+
+
+def test_module_level_api(tmp_path):
+    api.init_device("cpu")
+    try:
+        api.init_score_matrix("BLOSUM62")
+        api.init_gap_penalties(10, 1)
+        api.init_db_fasta(_fixture(tmp_path, "proteins.fas"))
+        q = api.init_sequence_fasta(_fixture(tmp_path, "query_prot.fas"))
+        hits = api.sw_align(q, 3, BitWidth.EXACT, ComputeMode.ALIGNMENT)
+        assert len(hits) == 3 and hits[0].cigar
+        assert api.default_context().device.type == "cpu"
+        api.ssa_exit()
+        assert api.default_context().db is None
+    finally:
+        api._default = None
+
+
+def _cli_json(main, argv, capsys):
+    assert main(argv) == 0
+    out = json.loads(capsys.readouterr().out)
+    out.pop("seconds")
+    return out
+
+
+@pytest.mark.parametrize("extra", [[], ["--algo", "nw", "--bit-width", "8", "--align"],
+                                   ["--all-queries"]],
+                         ids=["sw", "nw-bit8-align", "all-queries"])
+def test_cli_search_matches(tmp_path, capsys, extra):
+    db = _fixture(tmp_path, "proteins.fas")
+    query = _fixture(tmp_path, "query_prot.fas")
+    base = ["search", "--db", db, "--query", query, "-k", "5", "--json", *extra]
+    want = _cli_json(jax_cli.main, base + ["--platform", "cpu"], capsys)
+    got = _cli_json(cli.main, base + ["--device", "cpu"], capsys)
+    assert got == want
+
+
+def test_cli_info_pair_and_errors(tmp_path, capsys):
+    db = _fixture(tmp_path, "proteins.fas")
+    assert cli.main(["info", "--db", db]) == 0
+    info = json.loads(capsys.readouterr().out)
+    assert jax_cli.main(["info", "--db", db]) == 0
+    assert info == json.loads(capsys.readouterr().out)
+    assert cli.main(["pair", "--query", "MKVLAAGW", "--subject", "MKVIGAGW",
+                     "--device", "cpu"]) == 0
+    assert "score=" in capsys.readouterr().out
+    assert cli.main(["pair", "--query", "MKVLAAGW", "--subject", "MKVIGAGW",
+                     "--device", "cpu", "--score-only"]) == 2
+    assert "Queue 1 item 8" in capsys.readouterr().err
+    if not torch.cuda.is_available():
+        assert cli.main(["search", "--db", db, "--query", "MKVLAAGW"]) == 2
+        assert "CUDA is not available" in capsys.readouterr().err
+
+
+def test_cli_xprof_writes_trace(tmp_path, capsys):
+    db = _fixture(tmp_path, "proteins.fas")
+    out = tmp_path / "trace"
+    assert cli.main(["search", "--db", db, "--query", "MKVLAAGWKQTE", "-k", "2",
+                     "--device", "cpu", "--xprof", str(out)]) == 0
+    assert (out / "trace.json").stat().st_size > 0
+    assert np.isfinite(len(capsys.readouterr().out))

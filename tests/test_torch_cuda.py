@@ -1,0 +1,133 @@
+"""K1 and the search engine on an NVIDIA GPU, against the plain version.
+
+Every test here needs a card: it is marked ``cuda`` and skips without one.
+The file imports no JAX, so it also runs where JAX is not installed; on a
+machine with a card:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+(``tests/conftest.py`` configures JAX for the rest of the suite.)
+Tolerance: exact equality, since every value is an integer.
+"""
+import numpy as np
+import pytest
+import torch
+
+from libssa_tpu import matrices
+from libssa_tpu.constants import BitWidth, SymType
+from libssa_tpu.io.db import PAD_CODE, SequenceDB
+from libssa_tpu.ops.scoring import make_padded_profile
+from libssa_tpu_torch.ops import interseq, interseq_cuda
+from libssa_tpu_torch.search.manager import SearchEngine, SearchParams, SearchStats
+
+B62 = matrices.builtin("BLOSUM62")
+PADDED = B62.padded()
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (K1 has no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _pairs(rng, m, nq=3, g=2, n_pad=36, B=21, P=7):
+    """A stack group with ragged, padded and length-0 lanes, and P pairs."""
+    profs = np.stack([
+        make_padded_profile(rng.integers(0, 20, m).astype(np.uint8), PADDED)
+        for _ in range(nq)
+    ]).astype(np.int32)
+    m_reals = rng.integers(1, m + 1, nq).astype(np.int32)
+    lengths = rng.integers(0, n_pad + 1, (g, B)).astype(np.int32)
+    lengths[:, :2] = 0
+    codes = rng.integers(0, 20, (g, n_pad, B)).astype(np.int8)
+    codes[np.arange(n_pad)[None, :, None] >= lengths[:, None, :]] = PAD_CODE
+    iq = rng.integers(0, nq, P).astype(np.int32)
+    ic = rng.integers(0, g, P).astype(np.int32)
+    return profs, codes, lengths, iq, ic, m_reals
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+@pytest.mark.parametrize("local", [True, False], ids=["sw", "nw"])
+def test_k1_matches_plain(dev, local, dtype):
+    rng = np.random.default_rng(31)
+    for m in (1, 33, 300):
+        t = [torch.as_tensor(a).to(dev) for a in _pairs(rng, m)]
+        for track in (True, False):
+            before = interseq_cuda.launches
+            got = interseq_cuda.interseq_pairs_cuda(
+                *t, 12, 1, local=local, track_range=track, dtype=dtype
+            )
+            torch.cuda.synchronize()
+            assert interseq_cuda.launches == before + 1
+            want = interseq.interseq_pairs(
+                *t, 12, 1, local=local, track_range=track, dtype=dtype
+            )
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_k1_splits_pairs_to_fit_scratch(dev):
+    """A scratch for two pairs: seven pairs take four launches, same result."""
+    rng = np.random.default_rng(5)
+    t = [torch.as_tensor(a).to(dev) for a in _pairs(rng, 70, n_pad=40, B=130)]
+    per_pair = 2 * 40 * 130 * 4  # H and F rows, int32
+    scratch = torch.empty(2 * per_pair, dtype=torch.uint8, device=dev)
+    before = interseq_cuda.launches
+    got = interseq_cuda.interseq_pairs_cuda(*t, 11, 1, track_range=True, scratch=scratch)
+    torch.cuda.synchronize()
+    assert interseq_cuda.launches == before + 4
+    want = interseq.interseq_pairs(*t, 11, 1, track_range=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_k1_wrapper_rejects_what_it_cannot_take(dev):
+    rng = np.random.default_rng(6)
+    t = [torch.as_tensor(a).to(dev) for a in _pairs(rng, 8)]
+    bad_type = list(t)
+    bad_type[1] = t[1].to(torch.int32)
+    with pytest.raises(TypeError, match="codes"):
+        interseq_cuda.interseq_pairs_cuda(*bad_type, 11, 1)
+    strided = list(t)
+    strided[1] = t[1].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        interseq_cuda.interseq_pairs_cuda(*strided, 11, 1)
+    mixed = list(t)
+    mixed[2] = t[2].cpu()
+    with pytest.raises(ValueError, match="device"):
+        interseq_cuda.interseq_pairs_cuda(*mixed, 11, 1)
+
+
+def test_engine_on_card_equals_cpu(dev):
+    """Every search path: hit lists and stats on the card equal the CPU's."""
+    rng = np.random.default_rng(8)
+    seqs = [rng.integers(0, 20, int(rng.integers(20, 120))).astype(np.uint8)
+            for _ in range(300)]
+    seqs[7] = seqs[3].copy()  # a tie
+    db = SequenceDB.from_sequences([f"s{i}" for i in range(300)], seqs, SymType.AMINOACID)
+    engines = [SearchEngine(db, B62, 10, 1, SearchParams(batch_size=64), device=d)
+               for d in (dev, "cpu")]
+    queries = [seqs[3][:90], rng.integers(0, 20, 40).astype(np.uint8)]
+
+    def run(eng):
+        out = []
+        for local in (True, False):
+            for bw in (BitWidth.EXACT, BitWidth.BIT8, BitWidth.BIT64):
+                st = SearchStats()
+                out.append((eng.search(queries[0], 8, local, bw, st),
+                            st.cells, st.rescored))
+            st = SearchStats()
+            out.append((eng.search_many(queries, 6, local, st, BitWidth.BIT16),
+                        st.cells, st.rescored))
+            st = SearchStats()
+            out.append((eng.search_reduced(queries, None, 5, local, st),
+                        st.cells, st.rescored))
+        return out
+
+    got, want = run(engines[0]), run(engines[1])
+    for (g, gc, gr), (w, wc, wr) in zip(got, want):
+        np.testing.assert_equal(g, w)
+        assert (gc, gr) == (wc, wr)

@@ -1,0 +1,98 @@
+"""The port runs with JAX absent.
+
+Each check runs in a fresh interpreter: ``tests/conftest.py`` imports JAX
+into every test process, so only a subprocess can show that the port
+never needs it. ``sys.modules["jax"] = None`` makes any import of JAX
+raise, and the child also asserts that no ``jax`` module was loaded.
+"""
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+TESTDATA = ROOT / "tests" / "testdata"
+
+_PRELUDE = """
+import sys
+sys.modules["jax"] = None
+sys.path.insert(0, {root!r})
+"""
+
+_EPILOGUE = """
+loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+assert not [m for m in loaded if sys.modules[m] is not None], loaded
+"""
+
+_API = """
+import json
+import torch
+torch.set_num_threads(1)
+from libssa_tpu.constants import BitWidth, ComputeMode
+import libssa_tpu_torch.api as ssa
+
+ctx = ssa.SSAContext(device="cpu")
+ctx.init_score_matrix("BLOSUM62")
+ctx.init_gap_penalties(10, 1)
+ctx.init_db_fasta({db!r})
+q = ctx.init_sequence_fasta({query!r})
+hits = ctx.sw_align(q, 5, BitWidth.BIT8, ComputeMode.ALIGNMENT)
+print(json.dumps([[h.seq_id, h.score, h.cigar] for h in hits]))
+"""
+
+_CLI = """
+import torch
+torch.set_num_threads(1)
+from libssa_tpu_torch import cli
+rc = cli.main(["search", "--db", {db!r}, "--query", {query!r}, "-k", "3",
+               "--json", "--device", "cpu"])
+assert rc == 0, rc
+"""
+
+
+def _run(body: str, tmp_path) -> subprocess.CompletedProcess:
+    db = tmp_path / "proteins.fas"  # a private copy: packed-DB caches never race
+    query = tmp_path / "query_prot.fas"
+    shutil.copy(TESTDATA / db.name, db)
+    shutil.copy(TESTDATA / query.name, query)
+    code = (_PRELUDE.format(root=str(ROOT))
+            + body.format(db=str(db), query=str(query)) + _EPILOGUE)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    return subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=300, cwd=tmp_path, env=env,
+    )
+
+
+@pytest.mark.parametrize("entry", ["api", "cli"])
+def test_port_runs_without_jax(tmp_path, entry):
+    proc = _run(_API if entry == "api" else _CLI, tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    hits = out if entry == "api" else out["hits"]
+    assert len(hits) >= 3
+    if entry == "api":
+        assert all(cigar for _, _, cigar in hits)
+
+
+def _smoke(script: Path, cwd: Path) -> subprocess.CompletedProcess:
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    return subprocess.run(
+        [sys.executable, str(script)], capture_output=True, text=True,
+        timeout=300, cwd=cwd, env=env,
+    )
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["in-repo", "alone"])
+def test_chip_smoke_fails_without_card_or_port(tmp_path, alone):
+    """No CUDA, or no port beside the script: non-zero exit, no result."""
+    script = ROOT / "chip_smoke.py"
+    if alone:
+        script = Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
+    proc = _smoke(script, tmp_path)
+    assert proc.returncode != 0
+    assert proc.stdout == ""
