@@ -16,7 +16,20 @@ Drives the port's main path — database search through ``SearchEngine`` and
    ``sw_align``, whose traceback cross-checks K1; ``nw_align``;
    ``align_many``) against ``SSAContext(device="cpu")``;
 6. K1's time against the plain version's at bench.py's kernel shape (SW,
-   BLOSUM62 11/1, m=256, B=8192, n=512, track_range).
+   BLOSUM62 11/1, m=256, B=8192, n=512, track_range);
+7. K3 (``libssa_tpu_torch/csrc/longpair.cu``, built in phase 1 beside K1)
+   against its plain PyTorch version on random pairs (exact equality):
+   SW/NW, int32/int64, both band heights, protein and ACGT, m or n = 1,
+   m >> n, n >> m, a matrix entry above 256, and a score bound past 2**31;
+8. the 1-vs-1 score path at full width through
+   ``SSAContext(device="cuda").align_pair(..., mode=ComputeMode.SCORE)``,
+   held against the same call on the plain version: (a) a 16,384 x 16,384
+   protein pair, BLOSUM62 11/1, SW and NW; (b) a 100,000 x 100,000 ACGT
+   pair, 5/-4, gaps 10/1, SW, both strands; with K3's launch count and
+   time (CUDA events) beside the plain version's;
+9. BASELINE config 1's batched half: ``pair_scores_batch`` on K1, m = n =
+   512, P = 2048, NW, BLOSUM62 11/1, against the plain version and the
+   NumPy oracle.
 
 Any failed phase exits non-zero. Without CUDA the script exits non-zero
 before printing any result. JAX is blocked from import.
@@ -36,6 +49,11 @@ import numpy as np  # noqa: E402
 
 K1_REPLACES = "libssa_tpu/ops/interseq_pallas.py:92"
 K1_SOURCE = "libssa_tpu_torch/csrc/interseq.cu"
+K3_REPLACES = "libssa_tpu/ops/longpair_pallas.py:96"
+K3_SOURCE = "libssa_tpu_torch/csrc/longpair.cu"
+PAIR_PROTEIN = 16_384  # phase 8a: m = n, the shape libssa_tpu/api.py names
+PAIR_GENOME = 100_000  # phase 8b: m = n, 10**10 cells a strand
+BATCH_M, BATCH_P = 512, 2048  # phase 9: BASELINE config 1's batched half
 TESTDATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "testdata")
 
 
@@ -316,6 +334,251 @@ def phase6(dev):
     return t_k1, t_plain, err
 
 
+def cuda_ms(fn, reps=3):
+    """Min of ``reps`` CUDA-event timings after one warm-up: (ms, last output)."""
+    import torch
+
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return min(times), out
+
+
+def build_kernels():
+    """Phase 1: one nvcc per source, all started together."""
+    import concurrent.futures
+
+    from libssa_tpu_torch.ops import interseq_cuda, longpair_cuda
+
+    t0 = time.perf_counter()
+
+    def build(lib):
+        lib()
+        return time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        t_k1, t_k3 = pool.map(build, (interseq_cuda._lib, longpair_cuda._lib))
+    say(f"phase 1 build K1 ({K1_SOURCE}) and K3 ({K3_SOURCE}), nvcc sm_90a in "
+        f"parallel: ok, K1 {t_k1:.1f} s, K3 {t_k3:.1f} s")
+
+
+# -- phase 7 ----------------------------------------------------------------
+
+
+def phase7(dev):
+    import torch
+
+    from libssa_tpu import matrices, oracle
+    from libssa_tpu.constants import SymType
+    from libssa_tpu_torch.ops import longpair, longpair_cuda
+
+    rng = np.random.default_rng(77)
+    mats = {
+        "protein": (matrices.builtin("BLOSUM62").padded(), 20),
+        "acgt": (matrices.constant_scoring(5, -4, SymType.NUCLEOTIDE).padded(), 4),
+        "entry>256": (matrices.constant_scoring(300, -200, SymType.AMINOACID).padded(), 20),
+    }
+    shapes = ((1, 1), (1, 300), (300, 1), (1000, 37), (37, 1000), (3000, 200),
+              (257, 1500), (5000, 4000))
+    n_cases, max_err = 0, 0
+    for name, (mat, hi) in mats.items():
+        mat_d = torch.as_tensor(mat.astype(np.int32)).to(dev)
+        for k, (m, n) in enumerate(shapes if name != "entry>256" else shapes[3:6]):
+            q = torch.as_tensor(rng.integers(0, hi, m).astype(np.uint8)).to(dev)
+            s = torch.as_tensor(rng.integers(0, hi, n).astype(np.uint8)).to(dev)
+            Q, R = oracle.gap_qr(*((11, 1), (5, 2))[k % 2])
+            for local in (True, False):
+                want = longpair.longpair_score_plain(q, s, mat_d, Q, R, local, torch.int64)
+                for dt in (torch.int32, torch.int64):
+                    for ch in longpair_cuda.BAND_ROWS:
+                        got = longpair_cuda.longpair_score_cuda(
+                            q, s, mat_d, Q, R, local, dt, rows_per_thread=ch)
+                        torch.cuda.synchronize()
+                        err = abs(int(got) - int(want))
+                        max_err = max(max_err, err)
+                        n_cases += 1
+                        if got.dtype != dt or err:
+                            fail(7, f"K3 {int(got)} != plain {int(want)} ({name}, m={m}, "
+                                    f"n={n}, local={local}, {dt}, rows {ch})")
+    # A matrix whose entries push score_bound past 2**31: the routing
+    # itself picks int64.
+    big = np.full((32, 32), -64, np.int64)
+    big[:20, :20] = -(2**20)
+    np.fill_diagonal(big[:20, :20], 2**27)
+    q = rng.integers(0, 20, 600).astype(np.uint8)
+    s = np.concatenate([q[5:], rng.integers(0, 20, 40).astype(np.uint8)])
+    if longpair.score_bound(len(q), len(s), big, 11, 1) < longpair.INT32_LIMIT:
+        fail(7, "the large-entry matrix did not reach the int64 route")
+    for local in (True, False):
+        got = longpair.longpair_score(q, s, big, 10, 1, local, device=dev)
+        want = longpair.longpair_score(q, s, big, 10, 1, local, kernel="plain", device=dev)
+        ref = (oracle.sw_score if local else oracle.nw_score)(q, s, big[:20, :20], 10, 1)
+        if not got == want == ref or abs(ref) < 2**31:
+            fail(7, f"int64 route: K3 {got}, plain {want}, oracle {ref}")
+        n_cases += 1
+    say(f"phase 7 K3 vs plain on the card: {n_cases} cases equal (SW/NW, int32/int64, "
+        f"rows per thread {longpair_cuda.BAND_ROWS}, protein/ACGT/entry>256, score "
+        f"past 2**31 also equal to the oracle); max |diff| {max_err} (tolerance: exact)")
+    return max_err
+
+
+# -- phase 8 ----------------------------------------------------------------
+
+
+def phase8(dev):
+    import torch
+
+    from libssa_tpu import alphabet, matrices, oracle
+    from libssa_tpu.constants import AlignType, ComputeMode, Strand, SymType
+    from libssa_tpu_torch.api import SSAContext
+    from libssa_tpu_torch.ops import longpair, longpair_cuda
+
+    rng = np.random.default_rng(88)
+
+    def context(nucleotide):
+        ctx = SSAContext(device="cuda")
+        if nucleotide:
+            ctx.init_symbol_translation(SymType.NUCLEOTIDE, Strand.BOTH)
+            ctx.init_constant_scoring(5, -4)
+            ctx.init_gap_penalties(10, 1)
+        else:
+            ctx.init_score_matrix("BLOSUM62")
+            ctx.init_gap_penalties(11, 1)
+        return ctx
+
+    def related(codes, hi, rate):
+        """A homolog: substitutions at ``rate`` and a few indels."""
+        out = codes.copy()
+        hit = rng.random(len(out)) < rate
+        out[hit] = rng.integers(0, hi, int(hit.sum()))
+        cut = rng.integers(0, len(out) - 100, 4)
+        out = np.delete(out, np.concatenate([np.arange(c, c + 7) for c in cut[:2]]))
+        for c in cut[2:]:
+            out = np.insert(out, c, rng.integers(0, hi, 5))
+        return out
+
+    cases = []
+    for label, nucleotide, m, hi, modes in (
+        (f"8a {PAIR_PROTEIN} x {PAIR_PROTEIN} protein BLOSUM62 11/1", False,
+         PAIR_PROTEIN, 20, (AlignType.SW, AlignType.NW)),
+        (f"8b {PAIR_GENOME} x {PAIR_GENOME} ACGT 5/-4 10/1 both strands", True,
+         PAIR_GENOME, 4, (AlignType.SW,)),
+    ):
+        symtype = SymType.NUCLEOTIDE if nucleotide else SymType.AMINOACID
+        q_codes = rng.integers(0, hi, m).astype(np.uint8)
+        s_codes = related(q_codes, hi, 0.15)
+        s_codes = np.concatenate([s_codes, rng.integers(0, hi, m)])[:m].astype(np.uint8)
+        cases.append((label, nucleotide, symtype, q_codes, s_codes, modes))
+
+    # The main path: counts from zero, read right after.
+    longpair_cuda.launches = 0
+    results = []
+    for label, nucleotide, symtype, q_codes, s_codes, modes in cases:
+        ctx = context(nucleotide)
+        q = ctx.init_sequence_fasta(alphabet.decode(q_codes, symtype))
+        subject = alphabet.decode(s_codes, symtype)
+        for at in modes:
+            a = ctx.align_pair(q, subject, at, ComputeMode.SCORE)
+            results.append((label, at, a))
+    launches = longpair_cuda.launches
+    if launches <= 0:
+        fail(8, "K3 was not launched by align_pair(mode=SCORE)")
+
+    lines, sw16 = [], None
+    max_err = 0
+    for (label, nucleotide, symtype, q_codes, s_codes, modes), k in zip(
+            cases, (0, len(cases[0][5]))):
+        ctx = context(nucleotide)
+        ctx.params.kernel = "plain"
+        q = ctx.init_sequence_fasta(alphabet.decode(q_codes, symtype))
+        subject = alphabet.decode(s_codes, symtype)
+        for i, at in enumerate(modes):
+            _, _, a = results[k + i]
+            p = ctx.align_pair(q, subject, at, ComputeMode.SCORE)
+            if (a.score, a.strand, a.stats.cells) != (p.score, p.strand, p.stats.cells):
+                fail(8, f"{label} {at.name}: K3 ({a.score}, {a.strand}) != plain "
+                        f"({p.score}, {p.strand})")
+            max_err = max(max_err, abs(a.score - p.score))
+            # K3 alone on the best strand, on the tensors the API builds.
+            qc = dict(q.sequences)[a.strand]
+            Q, R = oracle.gap_qr(ctx.gap_open, ctx.gap_extend)
+            mat = torch.as_tensor(ctx.matrix.padded().astype(np.int32)).to(dev)
+            qt = torch.as_tensor(qc).to(dev)
+            st = torch.as_tensor(alphabet.encode(subject, symtype)).to(dev)
+            dt = (torch.int32 if longpair.score_bound(len(qc), len(st), ctx.matrix.padded(),
+                                                      Q, R) < longpair.INT32_LIMIT
+                  else torch.int64)
+            local = at is AlignType.SW
+            ms, out = cuda_ms(lambda: longpair_cuda.longpair_score_cuda(
+                qt, st, mat, Q, R, local, dt))
+            if int(out) != a.score:
+                fail(8, f"{label}: timed K3 run gave {int(out)}, not {a.score}")
+            cells = len(qc) * len(st)
+            plain_ms = 1e3 * p.stats.seconds / len(q.sequences)
+            lines.append(f"{label} {at.name}: score {a.score} (strand {a.strand}); K3 "
+                         f"{ms:.3f} ms ({cells / ms / 1e6:.2f} GCUPS, rows per thread "
+                         f"{longpair_cuda.band_rows(len(qc), torch.cuda.get_device_properties(dev).multi_processor_count)}); "
+                         f"plain {plain_ms:.1f} ms a strand "
+                         f"({cells / plain_ms / 1e6:.3f} GCUPS); align_pair wall K3 "
+                         f"{a.stats.seconds:.3f} s, plain {p.stats.seconds:.3f} s")
+            if sw16 is None:
+                sw16 = (ms, plain_ms)
+    for line in lines:
+        say("phase 8 " + line)
+    say(f"phase 8 align_pair(mode=SCORE) equals the plain version in every case; "
+        f"K3 launches {launches}")
+    return launches, max_err, sw16
+
+
+# -- phase 9 ----------------------------------------------------------------
+
+
+def phase9(dev):
+    import torch
+
+    from libssa_tpu import matrices, oracle
+    from libssa_tpu.ops.scoring import make_profile
+    from libssa_tpu_torch.ops import interseq, interseq_cuda
+
+    rng = np.random.default_rng(99)
+    m = n = BATCH_M
+    P = BATCH_P
+    b62 = matrices.builtin("BLOSUM62")
+    q = rng.integers(0, 20, m).astype(np.uint8)
+    subj = rng.integers(0, 20, (P, n)).astype(np.uint8)
+    prof = torch.as_tensor(make_profile(q, b62.padded())).to(dev)
+    s_d = torch.as_tensor(subj).to(dev)
+    lens = torch.full((P,), n, dtype=torch.int32, device=dev)
+    interseq_cuda.launches = 0
+    got = interseq.pair_scores_batch(prof, s_d, lens, 12, 1, local=False)
+    torch.cuda.synchronize()
+    launches = interseq_cuda.launches
+    if launches <= 0:
+        fail(9, "K1 was not launched by pair_scores_batch")
+    t0 = time.perf_counter()
+    want = interseq.pair_scores_batch(prof, s_d, lens, 12, 1, local=False, kernel="plain")
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    if not torch.equal(got, want):
+        fail(9, "pair_scores_batch on K1 differs from the plain version")
+    for p in (0, 1, P - 1):
+        ref = oracle.nw_score(q, subj[p], b62.scores, 11, 1)
+        if int(got[p]) != ref:
+            fail(9, f"pair {p}: {int(got[p])} != oracle {ref}")
+    ms, _ = cuda_ms(lambda: interseq.pair_scores_batch(prof, s_d, lens, 12, 1, local=False))
+    say(f"phase 9 pair_scores_batch m=n={m} P={P} NW BLOSUM62 11/1 on K1: {ms:.3f} ms, "
+        f"{P / ms * 1e3:.0f} pairs/s, {m * n * P / ms / 1e6:.2f} GCUPS (plain {plain_ms:.1f} "
+        f"ms); equal to the plain version, pairs 0, 1, {P - 1} equal to the oracle; "
+        f"K1 launches {launches}")
+
+
 def main() -> int:
     import torch
 
@@ -323,20 +586,21 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     # Fails here, before any output, where the port is not beside the script.
-    from libssa_tpu_torch.ops import interseq_cuda
+    from libssa_tpu_torch.ops import interseq_cuda, longpair_cuda  # noqa: F401
 
     say(card_line())  # name, power limit: as nvidia-smi prints them
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     dev = torch.device("cuda", 0)
 
-    t0 = time.perf_counter()
-    interseq_cuda._lib()
-    say(f"phase 1 build K1 ({K1_SOURCE}, nvcc sm_90a): ok, {time.perf_counter() - t0:.1f} s")
+    build_kernels()
     err2 = phase2(dev)
     launches, _, _ = phase34(dev)
     phase5()
     t_k1, t_plain, err6 = phase6(dev)
+    err7 = phase7(dev)
+    k3_launches, err8, (t_k3, t_k3_plain) = phase8(dev)
+    phase9(dev)
 
     say(json.dumps({"kernels": [{
         "name": "K1 interseq (inter-sequence SW/NW scoring)",
@@ -347,6 +611,15 @@ def main() -> int:
         "max_abs_err": max(err2, err6),
         "ms": t_k1,
         "plain_ms": t_plain,
+    }, {
+        "name": "K3 longpair (one whole pair, SW/NW score)",
+        "route": "cuda",
+        "source": K3_SOURCE,
+        "replaces": K3_REPLACES,
+        "launches": k3_launches,
+        "max_abs_err": max(err7, err8),
+        "ms": t_k3,
+        "plain_ms": t_k3_plain,
     }]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -15,11 +15,11 @@ module-level default context for reference-style scripts:
     ssa.ssa_exit()
 
 ``device`` defaults to "cuda" and raises where CUDA is absent; "cpu" runs
-only when it is asked for. What later slices bring raises
+only when it is asked for. SCORE-mode ``align_pair`` runs the long-pair
+scorer (K3 on the card). What later slices bring raises
 ``NotImplementedError`` naming its ROADMAP item: the sharded engine
-(``set_device_count(n > 1)``), SCORE-mode ``align_pair`` (the long-pair
-scorer) and tracebacks above ``aligner.MATRIX_CELL_LIMIT`` cells (the
-linear-space aligner).
+(``set_device_count(n > 1)``) and tracebacks above
+``aligner.MATRIX_CELL_LIMIT`` cells (the linear-space aligner).
 """
 from __future__ import annotations
 
@@ -497,22 +497,47 @@ class SSAContext:
     ) -> Alignment:
         """Align one query against one subject (no database): score + traceback.
 
-        ``mode=ComputeMode.SCORE`` needs the long-pair scorer, which the
-        port does not have yet.
+        ``mode=ComputeMode.SCORE`` skips the traceback and scores each
+        strand or frame with the long-pair scorer (``ops.longpair``: K3 on
+        the card, any pair size, O(m + n) device memory); for genome-scale
+        pairs this is the path to use. ``params.kernel`` "plain" pins the
+        plain PyTorch version.
         """
         if self.matrix is None:
             raise RuntimeError("init_score_matrix() must be called first")
-        if mode is ComputeMode.SCORE:
-            raise NotImplementedError(
-                "align_pair(mode=SCORE) runs the long-pair scorer, which comes "
-                "with ROADMAP Queue 1 item 8 (slice 2)"
-            )
         local = align_type is AlignType.SW
         sc = alphabet.encode(subject, self.matrix.symtype)
         q_seqs = self._search_sequences(query)
+        stats = SearchStats()
+        if mode is ComputeMode.SCORE:
+            from .ops.longpair import longpair_score
+
+            t0 = time.perf_counter()
+            best_s = None
+            for label, qc in q_seqs:
+                s = longpair_score(
+                    qc, sc, self.matrix.padded(), self.gap_open,
+                    self.gap_extend, local=local,
+                    first_residue_opens=self.params.first_residue_opens,
+                    kernel=self.params.kernel, device=self.device,
+                )
+                stats.cells += len(qc) * len(sc)
+                stats.dispatches += 1
+                stats.fetches += 1
+                if best_s is None or s > best_s[1]:
+                    best_s = (label, s)
+            stats.seconds += time.perf_counter() - t0
+            label, score = best_s
+            return Alignment(
+                seq_id=-1,
+                header="subject",
+                score=int(score),
+                align_type=align_type,
+                strand=label,
+                stats=stats,
+            )
         for _, qc in q_seqs:
             _check_traceback_size(qc, sc)
-        stats = SearchStats()
         t0 = time.perf_counter()
         best = None
         for label, qc in q_seqs:

@@ -7,6 +7,7 @@ on the CPU):
     python -m libssa_tpu_torch.cli search --db db.fas --query q.fas \
         --matrix BLOSUM62 --gap-open 10 --gap-extend 1 --algo sw -k 10 --align
     python -m libssa_tpu_torch.cli pair --query q.fas --subject s.fas --algo nw
+    python -m libssa_tpu_torch.cli pair --query q.fas --subject s.fas --score-only
     python -m libssa_tpu_torch.cli info --db db.fas
 """
 from __future__ import annotations
@@ -196,7 +197,7 @@ def main(argv=None) -> int:
     pp.add_argument("--subject", required=True, help="FASTA file or bare sequence")
     pp.add_argument(
         "--score-only", action="store_true",
-        help="score without traceback (needs the long-pair scorer)",
+        help="score without traceback (the long-pair scorer: K3 on the card)",
     )
     _add_scoring_args(pp)
     pp.set_defaults(fn=cmd_pair)

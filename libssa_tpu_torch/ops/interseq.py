@@ -19,7 +19,8 @@ computes in one pass; H = max(Hnof, F).
 
 The core runs a batch of (query, chunk) pairs at once — the shape a stage
 sweep hands to K1 — so the same function serves the single-query
-``interseq_scores`` and the pair-batched ``interseq_pairs``.
+``interseq_scores`` and the pair-batched ``interseq_pairs``;
+``pair_scores_batch`` runs P pairs that share one query through it.
 
 ``dtype``: "int32" and "float32" both compute in int32 (exact wherever the
 reference's f32 was; the manager keeps the f32-window flagging for
@@ -188,6 +189,38 @@ def interseq_pairs(
         profiles[iq], codes, ic, lengths.to(dev)[ic], m_reals.to(dev)[iq],
         Q, R, local, track_range, dt,
     )
+
+
+def pair_scores_batch(
+    profile: torch.Tensor,  # (m, PADDED_ALPHABET) int32, SHARED query profile
+    subjects: torch.Tensor,  # (P, n) integer codes, PAD-padded
+    lengths: torch.Tensor,  # (P,) int32 true subject lengths
+    gap_q,
+    gap_r,
+    local: bool = True,
+    m_real: int | None = None,
+    kernel: str = "auto",
+):
+    """Batched 1-vs-1 scoring of P pairs sharing one query: (P,) scores.
+
+    The pairs are the inter-sequence shape, one pair per lane, so this is
+    one ``interseq_scores`` call: K1 on CUDA tensors (``kernel`` "auto" or
+    "cuda", through ``interseq_cuda.interseq_scores_cuda``), the plain
+    version on the CPU or with ``kernel="plain"``. Exact in int32, or in
+    int64 where ``compute_dtype`` widens.
+    """
+    if kernel == "plain":
+        fn = interseq_scores
+    elif kernel in ("auto", "cuda"):
+        from .interseq_cuda import interseq_scores_cuda as fn
+    else:
+        raise ValueError(f"unknown kernel {kernel!r} (auto | cuda | plain)")
+    subjects_T = subjects.to(torch.int8).T.contiguous()  # (n, P)
+    scores, _, _ = fn(
+        profile.to(torch.int32), subjects_T, lengths.to(torch.int32),
+        int(gap_q), int(gap_r), local=local, track_range=False, m_real=m_real,
+    )
+    return scores
 
 
 def overflow_flags(scores, hi, lo, limit: int | None, local: bool):

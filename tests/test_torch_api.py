@@ -149,6 +149,33 @@ def test_align_pair_matches(tmp_path):
         assert a.stats.aligner_cells == b.stats.aligner_cells
 
 
+@pytest.mark.parametrize("algo", [AlignType.SW, AlignType.NW], ids=["sw", "nw"])
+def test_align_pair_score_matches(tmp_path, algo):
+    """SCORE mode: score, strand and stats, protein and both nucleotide strands."""
+    ref, port = _contexts(tmp_path)
+    q_ref = ref.init_sequence_fasta("MKVLAAGIVGWKQTERNDCFYHH")
+    q_port = port.init_sequence_fasta("MKVLAAGIVGWKQTERNDCFYHH")
+    runs = [(port, q_port, ref, q_ref, "AAGIVGWKQTEWWKVLAAG")]
+    ref, port = _contexts(
+        tmp_path, db="nucleotides.fas", symtype=SymType.NUCLEOTIDE,
+        strands=Strand.BOTH, constant=(5, -4), gaps=(10, 2),
+    )
+    qfile = _fixture(tmp_path, "query_nt.fas")
+    q_ref, q_port = ref.init_sequence_fasta(qfile), port.init_sequence_fasta(qfile)
+    assert len(q_port.sequences) == 2
+    subject = "ACGTTGCAAGGCTTACGATCGGATCCAGGT"
+    runs.append((port, q_port, ref, q_ref, subject))
+    for port, q_port, ref, q_ref, subject in runs:
+        a = port.align_pair(q_port, subject, algo, ComputeMode.SCORE)
+        b = ref.align_pair(q_ref, subject, algo, ComputeMode.SCORE)
+        assert _hits([a]) == _hits([b])
+        assert a.cigar is None
+        st_a, st_b = a.stats, b.stats
+        assert (st_a.cells, st_a.dispatches, st_a.fetches) == (
+            st_b.cells, st_b.dispatches, st_b.fetches)
+        assert st_a.cells == len(subject) * sum(len(c) for _, c in q_port.sequences)
+
+
 def test_later_slices_raise_not_implemented(tmp_path, monkeypatch):
     from libssa_tpu.search import aligner
 
@@ -157,8 +184,6 @@ def test_later_slices_raise_not_implemented(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         port.set_device_count(2)
     port.set_device_count(1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        port.align_pair(q, "MKVLAAGW", AlignType.SW, ComputeMode.SCORE)
     monkeypatch.setattr(aligner, "MATRIX_CELL_LIMIT", 100)
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         port.sw_align(q, 3, mode=ComputeMode.ALIGNMENT)
@@ -220,8 +245,11 @@ def test_cli_info_pair_and_errors(tmp_path, capsys):
                      "--device", "cpu"]) == 0
     assert "score=" in capsys.readouterr().out
     assert cli.main(["pair", "--query", "MKVLAAGW", "--subject", "MKVIGAGW",
-                     "--device", "cpu", "--score-only"]) == 2
-    assert "Queue 1 item 8" in capsys.readouterr().err
+                     "--device", "cpu", "--score-only"]) == 0
+    got = capsys.readouterr().out
+    assert jax_cli.main(["pair", "--query", "MKVLAAGW", "--subject", "MKVIGAGW",
+                         "--platform", "cpu", "--score-only"]) == 0
+    assert got == capsys.readouterr().out and "score=" in got
     if not torch.cuda.is_available():
         assert cli.main(["search", "--db", db, "--query", "MKVLAAGW"]) == 2
         assert "CUDA is not available" in capsys.readouterr().err

@@ -1,4 +1,4 @@
-"""K1 and the search engine on an NVIDIA GPU, against the plain version.
+"""K1, K3 and the search engine on an NVIDIA GPU, against the plain version.
 
 Every test here needs a card: it is marked ``cuda`` and skips without one.
 The file imports no JAX, so it also runs where JAX is not installed; on a
@@ -17,7 +17,7 @@ from libssa_tpu import matrices
 from libssa_tpu.constants import BitWidth, SymType
 from libssa_tpu.io.db import PAD_CODE, SequenceDB
 from libssa_tpu.ops.scoring import make_padded_profile
-from libssa_tpu_torch.ops import interseq, interseq_cuda
+from libssa_tpu_torch.ops import interseq, interseq_cuda, longpair, longpair_cuda
 from libssa_tpu_torch.search.manager import SearchEngine, SearchParams, SearchStats
 
 B62 = matrices.builtin("BLOSUM62")
@@ -29,7 +29,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (K1 has no CPU mode)")
+        pytest.skip("needs an NVIDIA GPU (K1 and K3 have no CPU mode)")
     return torch.device("cuda", 0)
 
 
@@ -131,3 +131,52 @@ def test_engine_on_card_equals_cpu(dev):
     for (g, gc, gr), (w, wc, wr) in zip(got, want):
         np.testing.assert_equal(g, w)
         assert (gc, gr) == (wc, wr)
+
+
+@pytest.mark.parametrize("ch", longpair_cuda.BAND_ROWS)
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
+@pytest.mark.parametrize("local", [True, False], ids=["sw", "nw"])
+def test_k3_matches_plain(dev, local, dtype, ch):
+    """Stripe edges crossed, m not a multiple of a stripe, m or n = 1."""
+    rng = np.random.default_rng(41 + ch)
+    mat = torch.as_tensor(PADDED.astype(np.int32)).to(dev)
+    for m, n in ((1, 1), (1, 90), (90, 1), (31, 33), (1000, 70), (70, 1000), (2100, 517)):
+        q = torch.as_tensor(rng.integers(0, 20, m).astype(np.uint8)).to(dev)
+        s = torch.as_tensor(rng.integers(0, 20, n).astype(np.uint8)).to(dev)
+        before = longpair_cuda.launches
+        got = longpair_cuda.longpair_score_cuda(
+            q, s, mat, 12, 1, local, dtype, rows_per_thread=ch
+        )
+        torch.cuda.synchronize()
+        assert longpair_cuda.launches == before + 1
+        want = longpair.longpair_score_plain(q, s, mat, 12, 1, local, dtype)
+        assert got.dtype == want.dtype and torch.equal(got, want), (m, n)
+
+
+def test_k3_wrapper_rejects_what_it_cannot_take(dev):
+    mat = torch.as_tensor(PADDED.astype(np.int32)).to(dev)
+    q = torch.zeros(40, dtype=torch.uint8, device=dev)
+    with pytest.raises(TypeError, match="q"):
+        longpair_cuda.longpair_score_cuda(q.to(torch.int32), q, mat, 12, 1)
+    with pytest.raises(ValueError, match="device"):
+        longpair_cuda.longpair_score_cuda(q.cpu(), q, mat, 12, 1)
+    with pytest.raises(ValueError, match="codes"):
+        longpair_cuda.longpair_score_cuda(q + 32, q, mat, 12, 1)
+    with pytest.raises(ValueError, match="rows_per_thread"):
+        longpair_cuda.longpair_score_cuda(q, q, mat, 12, 1, rows_per_thread=3)
+
+
+def test_pair_scores_batch_on_card_equals_cpu(dev):
+    rng = np.random.default_rng(13)
+    prof = make_padded_profile(rng.integers(0, 20, 50).astype(np.uint8), PADDED)
+    subjects = rng.integers(0, 20, (300, 64)).astype(np.uint8)
+    lengths = rng.integers(0, 65, 300).astype(np.int32)
+    for local in (True, False):
+        args = [torch.as_tensor(a) for a in (prof, subjects, lengths)]
+        want = interseq.pair_scores_batch(*args, 12, 1, local=local, m_real=50)
+        before = interseq_cuda.launches
+        got = interseq.pair_scores_batch(
+            *[a.to(dev) for a in args], 12, 1, local=local, m_real=50
+        )
+        assert interseq_cuda.launches == before + 1
+        assert torch.equal(got.cpu(), want)

@@ -53,6 +53,33 @@ rc = cli.main(["search", "--db", {db!r}, "--query", {query!r}, "-k", "3",
 assert rc == 0, rc
 """
 
+_SCORE = """
+import json
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from libssa_tpu import matrices
+from libssa_tpu.constants import AlignType, ComputeMode
+from libssa_tpu.ops.scoring import make_profile
+import libssa_tpu_torch.api as ssa
+from libssa_tpu_torch import cli
+from libssa_tpu_torch.ops import interseq
+
+ctx = ssa.SSAContext(device="cpu")
+ctx.init_score_matrix("BLOSUM62")
+ctx.init_gap_penalties(10, 1)
+q = ctx.init_sequence_fasta("MKVLAAGIVGWKQTE")
+a = ctx.align_pair(q, "MKVIGAGWKQTE", AlignType.SW, ComputeMode.SCORE)
+rc = cli.main(["pair", "--query", "MKVLAAGW", "--subject", "MKVIGAGW",
+               "--device", "cpu", "--score-only"])
+assert rc == 0, rc
+prof = make_profile(np.arange(8, dtype=np.uint8), matrices.builtin("BLOSUM62").padded())
+s = interseq.pair_scores_batch(
+    torch.as_tensor(prof), torch.arange(24, dtype=torch.uint8).view(3, 8) % 20,
+    torch.tensor([8, 5, 0], dtype=torch.int32), 11, 1)
+print(json.dumps({{"hits": [a.score, *s.tolist()]}}))
+"""
+
 
 def _run(body: str, tmp_path) -> subprocess.CompletedProcess:
     db = tmp_path / "proteins.fas"  # a private copy: packed-DB caches never race
@@ -68,9 +95,11 @@ def _run(body: str, tmp_path) -> subprocess.CompletedProcess:
     )
 
 
-@pytest.mark.parametrize("entry", ["api", "cli"])
+@pytest.mark.parametrize("entry", ["api", "cli", "score"])
 def test_port_runs_without_jax(tmp_path, entry):
-    proc = _run(_API if entry == "api" else _CLI, tmp_path)
+    """Search (API, CLI) and the 1-vs-1 score path (align_pair SCORE,
+    ``pair --score-only``, pair_scores_batch)."""
+    proc = _run({"api": _API, "cli": _CLI, "score": _SCORE}[entry], tmp_path)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     hits = out if entry == "api" else out["hits"]
