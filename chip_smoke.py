@@ -29,16 +29,38 @@ Drives the port's main path — database search through ``SearchEngine`` and
    time (CUDA events) beside the plain version's;
 9. BASELINE config 1's batched half: ``pair_scores_batch`` on K1, m = n =
    512, P = 2048, NW, BLOSUM62 11/1, against the plain version and the
-   NumPy oracle.
+   NumPy oracle;
+10. K2 (``libssa_tpu_torch/csrc/ring_block.cu``, built in phase 1) against
+    its plain PyTorch version on tiles whose boundaries come from a real DP
+    (exact equality): SW/NW, int32/int64, both band heights, RB or W = 1,
+    tall and wide tiles, one batched launch of mixed-size tiles, and the
+    tiles of one pair chained into its score, equal to K3's; K2's time
+    (the launch alone, and the whole wrapper) beside the plain version's
+    at phase 11a's first level;
+11. the linear-space traceback at full width through
+    ``SSAContext(device="cuda").align_pair(..., mode=ComputeMode.ALIGNMENT)``
+    (Myers-Miller levels on K2, leaves on the native host solver): (a)
+    phase 8a's 16,384 x 16,384 pair, SW and NW, score, coordinates and
+    cigar equal to ``SSAContext(device="cpu")`` (NumPy passes); (b) a
+    100,000 x 100,000 random protein pair, BLOSUM62 11/1, SW and NW, whose
+    score equals K3's, whose path re-scores to it and consumes its span;
+    with K2's launch count, the levels and the seconds on the device and
+    on the host.
+
+The second-to-last line is a JSON object with each kernel's launches by
+the main path, its largest difference from the plain version, its time,
+the plain version's and the least time the card could take (``bound_ms``).
 
 Any failed phase exits non-zero. Without CUDA the script exits non-zero
-before printing any result. JAX is blocked from import.
+before printing any result. JAX and the JAX package ``libssa_tpu`` are
+blocked from import.
 """
 from __future__ import annotations
 
 import sys
 
 sys.modules["jax"] = None  # the port must run with JAX absent
+sys.modules["libssa_tpu"] = None  # and without the JAX package
 
 import json  # noqa: E402
 import os  # noqa: E402
@@ -51,6 +73,24 @@ K1_REPLACES = "libssa_tpu/ops/interseq_pallas.py:92"
 K1_SOURCE = "libssa_tpu_torch/csrc/interseq.cu"
 K3_REPLACES = "libssa_tpu/ops/longpair_pallas.py:96"
 K3_SOURCE = "libssa_tpu_torch/csrc/longpair.cu"
+K2_REPLACES = "libssa_tpu/ops/ring_block_pallas.py:68"
+K2_SOURCE = "libssa_tpu_torch/csrc/ring_block.cu"
+TRACE_PAIR = 100_000  # phase 11b: m = n, the reference's largest traceback demo
+# The least time for a kernel's work (the kernels line's bound_ms): the
+# larger of bytes over HBM's rate and integer operations over the int32
+# rate. One H100 SXM: 3.35 TB/s; 67 TFLOP/s float32 is 128 FP32 lanes an SM
+# at two flops a fused multiply-add, and Hopper has half as many INT32
+# lanes, so 67e12 / 4 int32 operations a second.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4
+# The fewest int32 instructions a DP cell of Gotoh's recurrence needs on
+# Hopper, with its DPX instructions each counted as one operation:
+# h = __vimax3_s32(diag + s, e, f) is an add and a max3 (SW's floor at 0
+# rides in __vimax3_s32_relu); t = h - Q is shared by both gaps;
+# e' = __viaddmax_s32(e, -R, t) and f' likewise: 5 for NW. SW's running
+# max of H folds two cells into one __vimax3_s32: 5.5. K1's track_range
+# adds the running min the same way: 0.5.
+OPS_NW, OPS_SW, OPS_TRACK = 5, 5.5, 0.5
 PAIR_PROTEIN = 16_384  # phase 8a: m = n, the shape libssa_tpu/api.py names
 PAIR_GENOME = 100_000  # phase 8b: m = n, 10**10 cells a strand
 BATCH_M, BATCH_P = 512, 2048  # phase 9: BASELINE config 1's batched half
@@ -78,8 +118,8 @@ def card_line() -> str:
 
 def k1_cases(rng, padded_matrix):
     """Random pair batches: SW/NW x tracked x int32/int64 x m x shapes."""
-    from libssa_tpu.io.db import PAD_CODE
-    from libssa_tpu.ops.scoring import make_padded_profile, make_profile
+    from libssa_tpu_torch.io.db import PAD_CODE
+    from libssa_tpu_torch.ops.scoring import make_padded_profile, make_profile
 
     for m in (1, 33, 300):
         for n_pad, B in ((40, 37), (96, 300), (200, 128)):
@@ -104,7 +144,7 @@ def k1_cases(rng, padded_matrix):
 def phase2(dev):
     import torch
 
-    from libssa_tpu import matrices
+    from libssa_tpu_torch import matrices
     from libssa_tpu_torch.ops import interseq, interseq_cuda
 
     rng = np.random.default_rng(2024)
@@ -144,8 +184,8 @@ def phase2(dev):
 
 def flagship_db(n_seqs=500_000):
     """bench.py's flagship database: lognormal lengths, seed 99."""
-    from libssa_tpu.constants import SymType
-    from libssa_tpu.io.db import SequenceDB
+    from libssa_tpu_torch.constants import SymType
+    from libssa_tpu_torch.io.db import SequenceDB
 
     rng = np.random.default_rng(99)
     lengths = np.clip(
@@ -159,7 +199,7 @@ def flagship_db(n_seqs=500_000):
 
 def _oracle_score(args):
     local, q, s = args
-    from libssa_tpu import matrices, oracle
+    from libssa_tpu_torch import matrices, oracle
 
     fn = oracle.sw_score if local else oracle.nw_score
     return fn(q, s, matrices.builtin("BLOSUM62").scores, 11, 1)
@@ -171,8 +211,8 @@ def phase34(dev):
 
     import torch
 
-    from libssa_tpu import matrices
-    from libssa_tpu.constants import BitWidth
+    from libssa_tpu_torch import matrices
+    from libssa_tpu_torch.constants import BitWidth
     from libssa_tpu_torch.ops import interseq_cuda
     from libssa_tpu_torch.search.manager import SearchEngine, SearchStats
 
@@ -257,7 +297,7 @@ def phase34(dev):
 
 
 def phase5():
-    from libssa_tpu.constants import BitWidth, ComputeMode
+    from libssa_tpu_torch.constants import BitWidth, ComputeMode
     from libssa_tpu_torch.api import SSAContext
 
     def run(device):
@@ -289,8 +329,8 @@ def phase5():
 def phase6(dev):
     import torch
 
-    from libssa_tpu import matrices
-    from libssa_tpu.ops.scoring import make_profile
+    from libssa_tpu_torch import matrices
+    from libssa_tpu_torch.ops.scoring import make_profile
     from libssa_tpu_torch.ops import interseq, interseq_cuda
 
     rng = np.random.default_rng(0)
@@ -355,7 +395,7 @@ def build_kernels():
     """Phase 1: one nvcc per source, all started together."""
     import concurrent.futures
 
-    from libssa_tpu_torch.ops import interseq_cuda, longpair_cuda
+    from libssa_tpu_torch.ops import interseq_cuda, longpair_cuda, ring_block_cuda
 
     t0 = time.perf_counter()
 
@@ -363,10 +403,11 @@ def build_kernels():
         lib()
         return time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        t_k1, t_k3 = pool.map(build, (interseq_cuda._lib, longpair_cuda._lib))
-    say(f"phase 1 build K1 ({K1_SOURCE}) and K3 ({K3_SOURCE}), nvcc sm_90a in "
-        f"parallel: ok, K1 {t_k1:.1f} s, K3 {t_k3:.1f} s")
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        t_k1, t_k3, t_k2 = pool.map(
+            build, (interseq_cuda._lib, longpair_cuda._lib, ring_block_cuda._lib))
+    say(f"phase 1 build K1 ({K1_SOURCE}), K3 ({K3_SOURCE}) and K2 ({K2_SOURCE}), "
+        f"nvcc sm_90a in parallel: ok, K1 {t_k1:.1f} s, K3 {t_k3:.1f} s, K2 {t_k2:.1f} s")
 
 
 # -- phase 7 ----------------------------------------------------------------
@@ -375,8 +416,8 @@ def build_kernels():
 def phase7(dev):
     import torch
 
-    from libssa_tpu import matrices, oracle
-    from libssa_tpu.constants import SymType
+    from libssa_tpu_torch import matrices, oracle
+    from libssa_tpu_torch.constants import SymType
     from libssa_tpu_torch.ops import longpair, longpair_cuda
 
     rng = np.random.default_rng(77)
@@ -432,29 +473,14 @@ def phase7(dev):
 # -- phase 8 ----------------------------------------------------------------
 
 
-def phase8(dev):
-    import torch
-
-    from libssa_tpu import alphabet, matrices, oracle
-    from libssa_tpu.constants import AlignType, ComputeMode, Strand, SymType
-    from libssa_tpu_torch.api import SSAContext
-    from libssa_tpu_torch.ops import longpair, longpair_cuda
+def pair_cases():
+    """Phase 8's pairs (seed 88): a homolog of a random query, with
+    substitutions at 15% and a few indels, cut to the query's length."""
+    from libssa_tpu_torch.constants import AlignType, SymType
 
     rng = np.random.default_rng(88)
 
-    def context(nucleotide):
-        ctx = SSAContext(device="cuda")
-        if nucleotide:
-            ctx.init_symbol_translation(SymType.NUCLEOTIDE, Strand.BOTH)
-            ctx.init_constant_scoring(5, -4)
-            ctx.init_gap_penalties(10, 1)
-        else:
-            ctx.init_score_matrix("BLOSUM62")
-            ctx.init_gap_penalties(11, 1)
-        return ctx
-
     def related(codes, hi, rate):
-        """A homolog: substitutions at ``rate`` and a few indels."""
         out = codes.copy()
         hit = rng.random(len(out)) < rate
         out[hit] = rng.integers(0, hi, int(hit.sum()))
@@ -476,6 +502,29 @@ def phase8(dev):
         s_codes = related(q_codes, hi, 0.15)
         s_codes = np.concatenate([s_codes, rng.integers(0, hi, m)])[:m].astype(np.uint8)
         cases.append((label, nucleotide, symtype, q_codes, s_codes, modes))
+    return cases
+
+
+def phase8(dev):
+    import torch
+
+    from libssa_tpu_torch import alphabet, matrices, oracle
+    from libssa_tpu_torch.constants import AlignType, ComputeMode, Strand, SymType
+    from libssa_tpu_torch.api import SSAContext
+    from libssa_tpu_torch.ops import longpair, longpair_cuda
+
+    def context(nucleotide):
+        ctx = SSAContext(device="cuda")
+        if nucleotide:
+            ctx.init_symbol_translation(SymType.NUCLEOTIDE, Strand.BOTH)
+            ctx.init_constant_scoring(5, -4)
+            ctx.init_gap_penalties(10, 1)
+        else:
+            ctx.init_score_matrix("BLOSUM62")
+            ctx.init_gap_penalties(11, 1)
+        return ctx
+
+    cases = pair_cases()
 
     # The main path: counts from zero, read right after.
     longpair_cuda.launches = 0
@@ -543,8 +592,8 @@ def phase8(dev):
 def phase9(dev):
     import torch
 
-    from libssa_tpu import matrices, oracle
-    from libssa_tpu.ops.scoring import make_profile
+    from libssa_tpu_torch import matrices, oracle
+    from libssa_tpu_torch.ops.scoring import make_profile
     from libssa_tpu_torch.ops import interseq, interseq_cuda
 
     rng = np.random.default_rng(99)
@@ -578,6 +627,276 @@ def phase9(dev):
         f"ms); equal to the plain version, pairs 0, 1, {P - 1} equal to the oracle; "
         f"K1 launches {launches}")
 
+# -- phase 10 ----------------------------------------------------------------
+
+
+def dp_bounds(m, n, Q, R, local, dt):
+    """The boundaries of a whole pair's DP as K2 takes them (CPU tensors):
+    leftH (m + 1,) corner first, leftE (m,), topH (n,), topF (n,)."""
+    import torch
+
+    if local:
+        leftH, topH = torch.zeros(m + 1, dtype=dt), torch.zeros(n, dtype=dt)
+    else:
+        leftH = torch.cat([torch.zeros(1, dtype=dt), -(Q + R * torch.arange(m, dtype=dt))])
+        topH = -(Q + R * torch.arange(n, dtype=dt))
+    return leftH, leftH[1:] - Q + R, topH, topH - Q + R
+
+
+def real_bounds(q, s, mat, Q, R, local, r0, c0, RB, W, dt):
+    """The boundaries of tile (r0, c0, RB, W) in the pair's real DP, from the
+    plain version over the strips to its left and above it (CPU tensors)."""
+    import torch
+
+    from libssa_tpu_torch.ops.ring_block import ring_block_plain
+
+    lH, lE, tH, tF = dp_bounds(len(q), len(s), Q, R, local, dt)
+    colH, colE = lH, lE  # H, E at column c0 - 1 for rows -1 .. r0 + RB - 1
+    if c0 > 0:
+        left = ring_block_plain(q[:r0 + RB], s[:c0], mat, Q, R, local, lH[:r0 + RB + 1],
+                                lE[:r0 + RB], tH[:c0], tF[:c0])
+        colH, colE = torch.cat([tH[c0 - 1:c0], left.rightH]), left.rightE
+    topH, topF = tH[c0:c0 + W], tF[c0:c0 + W]  # H, F of row r0 - 1
+    if r0 > 0:
+        top = ring_block_plain(q[:r0], s[:c0 + W], mat, Q, R, local, lH[:r0 + 1], lE[:r0],
+                               tH[:c0 + W], tF[:c0 + W])
+        topH, topF = top.botH[c0:], top.botF[c0:]
+    return colH[r0:r0 + RB + 1], colE[r0:r0 + RB], topH, topF
+
+
+def tiles_diff(got, want) -> int:
+    """Largest |difference| over K2's outputs; fails on a dtype mismatch."""
+    err = 0
+    for a, b in zip(got, want):
+        if (a is None) != (b is None):
+            raise AssertionError("one side lacks an output")
+        if a is not None:
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"{a.dtype} {tuple(a.shape)} != {b.dtype} {tuple(b.shape)}")
+            err = max(err, (a.long() - b.long()).abs().max().item())
+    return err
+
+
+def phase10(dev):
+    import torch
+
+    from libssa_tpu_torch import matrices, oracle
+    from libssa_tpu_torch.ops import longpair_cuda, ring_block, ring_block_cuda
+    from libssa_tpu_torch.ops.mm_device import DevicePair
+
+    rng = np.random.default_rng(1010)
+    padded = matrices.builtin("BLOSUM62").padded().astype(np.int32)
+    mat_c, mat_d = torch.as_tensor(padded), torch.as_tensor(padded).to(dev)
+    Q, R = oracle.gap_qr(11, 1)
+    # (RB, W, r0, c0): RB or W = 1, tall, wide, square, a tile at the origin.
+    shapes = ((1, 1, 5, 7), (1, 300, 40, 3), (300, 1, 2, 40), (2000, 37, 100, 60),
+              (37, 3000, 60, 100), (700, 700, 0, 0), (513, 250, 31, 0), (250, 513, 0, 31))
+    n_cases, max_err = 0, 0
+    batch = {True: [], False: []}  # local -> [(q, s, bounds, plain)], int32
+    for RB, W, r0, c0 in shapes:
+        q = torch.as_tensor(rng.integers(0, 20, r0 + RB + 3).astype(np.uint8))
+        s = torch.as_tensor(rng.integers(0, 20, c0 + W + 5).astype(np.uint8))
+        q_d, s_d = q.to(dev), s.to(dev)
+        for local in (True, False):
+            for dt in (torch.int32, torch.int64):
+                bounds = [b.contiguous().to(dev) for b in
+                          real_bounds(q, s, mat_c, Q, R, local, r0, c0, RB, W, dt)]
+                want = ring_block.ring_block_plain(q_d[r0:r0 + RB], s_d[c0:c0 + W], mat_d, Q,
+                                                   R, local, *bounds)
+                if dt == torch.int32:
+                    batch[local].append((q_d[r0:r0 + RB], s_d[c0:c0 + W], bounds, want))
+                for ch in ring_block_cuda.BAND_ROWS:
+                    got = ring_block_cuda.ring_block_cuda(
+                        q_d, s_d, [[r0, RB, c0, W]], mat_d, Q, R, local, *bounds,
+                        rows_per_thread=ch)
+                    torch.cuda.synchronize()
+                    err = tiles_diff(got, want)
+                    max_err = max(max_err, err)
+                    n_cases += 1
+                    if err:
+                        fail(10, f"K2 differs from plain (RB={RB}, W={W}, at ({r0}, {c0}), "
+                                 f"local={local}, {dt}, rows {ch}): max |diff| {err}")
+    # Every tile above in one launch, SW and NW.
+    for local, tiles in batch.items():
+        qs = torch.cat([t[0] for t in tiles])
+        ss = torch.cat([t[1] for t in tiles])
+        rows = np.array([len(t[0]) for t in tiles])
+        cols = np.array([len(t[1]) for t in tiles])
+        jobs = np.stack([np.cumsum(rows) - rows, rows, np.cumsum(cols) - cols, cols], 1)
+        flat = [torch.cat([t[2][k] for t in tiles]) for k in range(4)]
+        got = ring_block_cuda.ring_block_cuda(qs, ss, jobs, mat_d, Q, R, local, *flat)
+        want = [torch.cat(parts) if parts[0] is not None else None
+                for parts in zip(*[t[3] for t in tiles])]
+        torch.cuda.synchronize()
+        err = tiles_diff(got, want)
+        max_err = max(max_err, err)
+        n_cases += 1
+        if err:
+            fail(10, f"the batched launch of {len(tiles)} tiles differs (local={local})")
+    # One pair's tiles chained into its score: equal to K3's.
+    m, n, RB, W = 3000, 2500, 1024, 1000
+    q = torch.as_tensor(rng.integers(0, 20, m).astype(np.uint8)).to(dev)
+    s = torch.as_tensor(rng.integers(0, 20, n).astype(np.uint8)).to(dev)
+    for local in (True, False):
+        lH, lE, tH, tF = (b.to(dev) for b in dp_bounds(m, n, Q, R, local, torch.int32))
+        best = 0
+        for r0 in range(0, m, RB):
+            rb = min(RB, m - r0)
+            left_H, left_E = lH[r0:r0 + rb + 1], lE[r0:r0 + rb]
+            rowH, rowF = [], []
+            for c0 in range(0, n, W):
+                w = min(W, n - c0)
+                out = ring_block_cuda.ring_block_cuda(
+                    q, s, [[r0, rb, c0, w]], mat_d, Q, R, local, left_H.contiguous(),
+                    left_E.contiguous(), tH[c0:c0 + w].contiguous(), tF[c0:c0 + w].contiguous())
+                left_H, left_E = torch.cat([tH[c0 + w - 1:c0 + w], out.rightH]), out.rightE
+                rowH.append(out.botH)
+                rowF.append(out.botF)
+                if local:
+                    best = max(best, int(out.rowmax.max()))
+            tH, tF = torch.cat(rowH), torch.cat(rowF)
+        chained = best if local else int(tH[-1])
+        k3 = int(longpair_cuda.longpair_score_cuda(q, s, mat_d, Q, R, local, torch.int32))
+        n_cases += 1
+        if chained != k3:
+            fail(10, f"{m} x {n} in {RB} x {W} tiles on K2 scores {chained}, K3 {k3} "
+                     f"(local={local})")
+    # K2's time at phase 11a's first Myers-Miller level (both passes of the
+    # root node of the 16,384^2 NW traceback), beside the plain version's.
+    _, _, _, q8, s8, _ = pair_cases()[0]
+    pair = DevicePair(q8, s8, padded, Q, R, device=dev)
+    jobs, tbs = pair.level_jobs([(0, pair.m, 0, pair.n, False, False)])
+    bounds = pair.bounds(jobs, tbs)
+    # The launch alone: its job table, ticket map and outputs staged first.
+    ms, got = cuda_ms(ring_block_cuda.stage(pair.q, pair.s, jobs, pair.matrix, Q, R, False,
+                                            *bounds, codes_checked=True))
+    # And the whole wrapper: staging, the code check and its wait included.
+    ms_wrapper, _ = cuda_ms(lambda: ring_block_cuda.ring_block_cuda(
+        pair.q, pair.s, jobs, pair.matrix, Q, R, False, *bounds))
+    t0 = time.perf_counter()
+    want = ring_block.ring_block_batch_plain(pair.q, pair.s, jobs, pair.matrix, Q, R, False,
+                                             *bounds)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = tiles_diff(got, want)
+    max_err = max(max_err, err)
+    if err:
+        fail(10, "K2 differs from plain at phase 11a's first level")
+    cells = int((jobs[:, 1] * jobs[:, 3]).sum())
+    say(f"phase 10 K2 vs plain on the card: {n_cases} cases equal (SW/NW, int32/int64, "
+        f"rows per thread {ring_block_cuda.BAND_ROWS}, RB or W = 1, tall, wide, one launch "
+        f"of {len(batch[True])} mixed tiles, {m} x {n} chained in {RB} x {W} tiles = K3's "
+        f"score); max |diff| {max_err} (tolerance: exact). First level of 11a NW (2 tiles "
+        f"of {jobs[0, 1]} x {jobs[0, 3]}): K2 launch alone {ms:.3f} ms ({cells / ms / 1e6:.2f} "
+        f"GCUPS, min of 3), the whole wrapper {ms_wrapper:.3f} ms, plain {plain_ms:.1f} ms")
+    return max_err, ms, plain_ms, cells
+
+
+# -- phase 11 ----------------------------------------------------------------
+
+
+def phase11(dev):
+    from libssa_tpu_torch import alphabet, matrices, oracle
+    from libssa_tpu_torch.api import SSAContext
+    from libssa_tpu_torch.constants import AlignType, ComputeMode, SymType
+    from libssa_tpu_torch.ops import ring_block_cuda
+    from libssa_tpu_torch.search import leafnative
+    from libssa_tpu_torch.search.hirschberg import _ops_score
+
+    if not leafnative.native_available():
+        fail(11, "the native leaf solver (csrc/leafalign.cpp) did not build")
+    b62 = matrices.builtin("BLOSUM62")
+    Q, R = oracle.gap_qr(11, 1)
+    label8, _, _, q8, s8, _ = pair_cases()[0]
+    rng = np.random.default_rng(111)
+    qb = rng.integers(0, 20, TRACE_PAIR).astype(np.uint8)
+    sb = rng.integers(0, 20, TRACE_PAIR).astype(np.uint8)
+    pairs = ((f"11a {label8[3:]}", q8, s8),
+             (f"11b {TRACE_PAIR} x {TRACE_PAIR} random protein BLOSUM62 11/1", qb, sb))
+
+    def context(device):
+        ctx = SSAContext(device=device)
+        ctx.init_score_matrix("BLOSUM62")
+        ctx.init_gap_penalties(11, 1)
+        return ctx
+
+    def decode(codes):
+        return alphabet.decode(codes, SymType.AMINOACID)
+
+    # The main path: counts from zero, read right after.
+    gpu = context("cuda")
+    ring_block_cuda.launches = 0
+    runs = []
+    for label, qc, sc in pairs:
+        q, subject = gpu.init_sequence_fasta(decode(qc)), decode(sc)
+        for at in (AlignType.SW, AlignType.NW):
+            t0 = time.perf_counter()
+            a = gpu.align_pair(q, subject, at, ComputeMode.ALIGNMENT)
+            runs.append((label, at, qc, sc, a, time.perf_counter() - t0))
+    launches = ring_block_cuda.launches
+    if launches <= 0:
+        fail(11, "K2 was not launched by align_pair(mode=ALIGNMENT)")
+
+    cpu = context("cpu")
+    for label, at, qc, sc, a, wall in runs:
+        st = a.stats
+        span = (a.q_begin, a.q_end, a.s_begin, a.s_end)
+        ops = np.frombuffer(a.cigar.encode(), np.uint8)
+        steps_q = int(np.isin(ops, (ord("M"), ord("D"))).sum())
+        steps_s = int(np.isin(ops, (ord("M"), ord("I"))).sum())
+        if (steps_q, steps_s) != (a.q_end - a.q_begin, a.s_end - a.s_begin):
+            fail(11, f"{label} {at.name}: the path does not consume its span {span}")
+        if at is AlignType.NW and span != (0, len(qc), 0, len(sc)):
+            fail(11, f"{label} NW: span {span} is not the whole pair")
+        rescored = _ops_score(qc[a.q_begin:a.q_end], sc[a.s_begin:a.s_end], b62.scores,
+                              Q, R, list(a.cigar))
+        if rescored != a.score:
+            fail(11, f"{label} {at.name}: the path re-scores to {rescored}, not {a.score}")
+        if label.startswith("11a"):
+            c = cpu.align_pair(cpu.init_sequence_fasta(decode(qc)), decode(sc), at,
+                               ComputeMode.ALIGNMENT)
+            if (c.score, c.q_begin, c.q_end, c.s_begin, c.s_end, c.cigar) != (
+                    a.score, *span, a.cigar):
+                fail(11, f"{label} {at.name}: the card's traceback differs from the CPU's "
+                         f"(score {a.score} vs {c.score}, span {span} vs "
+                         f"{(c.q_begin, c.q_end, c.s_begin, c.s_end)})")
+            check = f"equal to device='cpu' ({c.stats.aligner_seconds:.1f} s there)"
+        else:
+            k3 = gpu.align_pair(gpu.init_sequence_fasta(decode(qc)), decode(sc), at,
+                                ComputeMode.SCORE)
+            if k3.score != a.score:
+                fail(11, f"{label} {at.name}: traceback score {a.score} != K3's {k3.score}")
+            check = f"= K3's score ({k3.stats.seconds:.3f} s)"
+        say(f"phase 11 {label} {at.name}: score {a.score}, span {span}, {len(a.cigar)} ops, "
+            f"re-scored equal, {check}; {wall:.3f} s wall: K2 launches "
+            f"{st.aligner_dispatches} over {st.aligner_levels} levels, device "
+            f"{st.aligner_device_seconds:.3f} s, host "
+            f"{st.aligner_seconds - st.aligner_device_seconds:.3f} s")
+    say(f"phase 11 align_pair(mode=ALIGNMENT) on the card: every check passed; K2 "
+        f"launches {launches}; native leaf solver used")
+    # Where 11b NW's wall time goes: one more run under cProfile (host
+    # functions by own time; K2's time shows where the host waits on it).
+    import cProfile
+    import pstats
+
+    q, subject = gpu.init_sequence_fasta(decode(qb)), decode(sb)
+    prof = cProfile.Profile()
+    prof.runcall(gpu.align_pair, q, subject, AlignType.NW, ComputeMode.ALIGNMENT)
+    stats = pstats.Stats(prof)
+    top = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:8]
+    say("phase 11 profile of 11b NW (own seconds, calls): " + "; ".join(
+        f"{fn[2]} ({os.path.basename(fn[0])}:{fn[1]}) {v[2]:.3f} s, {v[1]}" for fn, v in top)
+        + f"; total {stats.total_tt:.3f} s")
+    return launches
+
+
+def bound_ms(cells: int, ops_per_cell: float, nbytes: int) -> tuple[float, str]:
+    """The least time for the work, in ms, and what bounds it."""
+    t_ops = cells * ops_per_cell / INT32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 
 def main() -> int:
     import torch
@@ -586,7 +905,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     # Fails here, before any output, where the port is not beside the script.
-    from libssa_tpu_torch.ops import interseq_cuda, longpair_cuda  # noqa: F401
+    from libssa_tpu_torch.ops import interseq_cuda, longpair_cuda, ring_block_cuda  # noqa: F401
 
     say(card_line())  # name, power limit: as nvidia-smi prints them
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -601,7 +920,16 @@ def main() -> int:
     err7 = phase7(dev)
     k3_launches, err8, (t_k3, t_k3_plain) = phase8(dev)
     phase9(dev)
+    err10, t_k2, t_k2_plain, k2_cells = phase10(dev)
+    k2_launches = phase11(dev)
 
+    # bound_ms at each timed shape: K1 at bench.py's kernel shape (subject
+    # codes in, one score and range out per subject), K3 at 8a SW (codes in),
+    # K2 at 11a's first level (codes, boundaries and outputs: 4 words a row
+    # and a column, int32).
+    b_k1 = bound_ms(256 * 8192 * 512, OPS_SW + OPS_TRACK, 8192 * 512 + 8192 * 12)
+    b_k3 = bound_ms(PAIR_PROTEIN ** 2, OPS_SW, 2 * PAIR_PROTEIN)
+    b_k2 = bound_ms(k2_cells, OPS_NW, 4 * PAIR_PROTEIN * 17)
     say(json.dumps({"kernels": [{
         "name": "K1 interseq (inter-sequence SW/NW scoring)",
         "route": "cuda",
@@ -611,6 +939,9 @@ def main() -> int:
         "max_abs_err": max(err2, err6),
         "ms": t_k1,
         "plain_ms": t_plain,
+        "bound_ms": b_k1[0],
+        "bound_by": b_k1[1],
+        "library_ms": None,
     }, {
         "name": "K3 longpair (one whole pair, SW/NW score)",
         "route": "cuda",
@@ -620,6 +951,21 @@ def main() -> int:
         "max_abs_err": max(err7, err8),
         "ms": t_k3,
         "plain_ms": t_k3_plain,
+        "bound_ms": b_k3[0],
+        "bound_by": b_k3[1],
+        "library_ms": None,
+    }, {
+        "name": "K2 ring_block (tiles with boundary I/O, the Myers-Miller levels)",
+        "route": "cuda",
+        "source": K2_SOURCE,
+        "replaces": K2_REPLACES,
+        "launches": k2_launches,
+        "max_abs_err": err10,
+        "ms": t_k2,
+        "plain_ms": t_k2_plain,
+        "bound_ms": b_k2[0],
+        "bound_by": b_k2[1],
+        "library_ms": None,
     }]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

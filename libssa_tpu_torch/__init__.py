@@ -3,12 +3,15 @@
 Smith-Waterman and Needleman-Wunsch database search with affine gaps, the
 8->16->64-bit precision ladder and top-k hit lists, on PyTorch tensors, with
 the inter-sequence scoring kernel written by hand in CUDA C++ for Hopper
-(``csrc/interseq.cu``). The framework-neutral modules (alphabets, matrices,
-the packed database, the NumPy oracle and traceback aligner) are imported
-from ``libssa_tpu``, never copied; nothing here imports JAX.
+(``csrc/interseq.cu``), the one-pair scorer (``csrc/longpair.cu``) and the
+tile kernel under the linear-space traceback (``csrc/ring_block.cu``). The
+package stands alone: it keeps its own copies of the reference's
+framework-neutral modules (constants, alphabets, matrices, the packed
+database, the NumPy oracle and aligners) and imports nothing of
+``libssa_tpu`` and nothing of JAX.
 """
 
-from libssa_tpu.constants import (
+from .constants import (
     AlignType,
     BitWidth,
     ComputeMode,

@@ -16,10 +16,13 @@ module-level default context for reference-style scripts:
 
 ``device`` defaults to "cuda" and raises where CUDA is absent; "cpu" runs
 only when it is asked for. SCORE-mode ``align_pair`` runs the long-pair
-scorer (K3 on the card). What later slices bring raises
-``NotImplementedError`` naming its ROADMAP item: the sharded engine
-(``set_device_count(n > 1)``) and tracebacks above
-``aligner.MATRIX_CELL_LIMIT`` cells (the linear-space aligner).
+scorer (K3 on the card). Tracebacks above ``aligner.MATRIX_CELL_LIMIT``
+cells run the linear-space aligner, whose large levels run on K2 on the
+card. The sharded engine (``set_device_count(n > 1)``) raises
+``NotImplementedError`` naming its ROADMAP item.
+
+The enums are the port's own (``libssa_tpu_torch.constants``); a member of
+the JAX package's enums raises ``TypeError``.
 """
 from __future__ import annotations
 
@@ -29,8 +32,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from libssa_tpu import alphabet, matrices, oracle
-from libssa_tpu.constants import (
+from . import alphabet, matrices, oracle
+from .constants import (
     AlignType,
     BitWidth,
     ComputeMode,
@@ -38,14 +41,13 @@ from libssa_tpu.constants import (
     Strand,
     SymType,
 )
-from libssa_tpu.io import fasta
-from libssa_tpu.io.db import SequenceDB
-from libssa_tpu.ops.topk import host_topk
-from libssa_tpu.search import aligner
-from libssa_tpu.util import logging as _logging
-from libssa_tpu.util.logging import log
-
+from .io import fasta
+from .io.db import SequenceDB
+from .ops.topk import host_topk
+from .search import aligner
 from .search.manager import SearchEngine, SearchParams, SearchStats, resolve_device
+from .util import logging as _logging
+from .util.logging import log
 
 
 class ScoreMismatchError(RuntimeError):
@@ -64,15 +66,18 @@ def _check_scores_match(tb_score: int, search_score: int) -> None:
         )
 
 
-def _check_traceback_size(qc, sc) -> None:
-    """Tracebacks above the full-matrix limit need the linear-space aligner."""
-    cells = len(qc) * len(sc)
-    if cells > aligner.MATRIX_CELL_LIMIT:
-        raise NotImplementedError(
-            f"traceback of {cells} cells exceeds aligner.MATRIX_CELL_LIMIT "
-            f"({aligner.MATRIX_CELL_LIMIT}); the linear-space aligner comes "
-            "with ROADMAP Queue 1 item 9"
+def _own(value, cls, name: str):
+    """``value`` if it is a member of the port's ``cls``, else TypeError.
+
+    The port's enums are its own classes: a member of the JAX package's
+    ``AlignType`` is not ``AlignType.SW`` here, and would silently route a
+    local alignment as a global one.
+    """
+    if not isinstance(value, cls):
+        raise TypeError(
+            f"{name}: expected libssa_tpu_torch.{cls.__name__}, got {value!r}"
         )
+    return value
 
 
 @dataclass
@@ -188,8 +193,11 @@ class SSAContext:
         reading frames (query frames per ``strands``; a nucleotide database
         in all six).
         """
-        self.symtype = symtype
-        self.db_symtype = db_symtype if db_symtype is not None else symtype
+        self.symtype = _own(symtype, SymType, "symtype")
+        self.db_symtype = (
+            _own(db_symtype, SymType, "db_symtype") if db_symtype is not None
+            else symtype
+        )
         self.strands = Strand(strands)
         self.q_gencode = q_gencode
         self.d_gencode = d_gencode
@@ -341,11 +349,11 @@ class SSAContext:
         Cross-checks the traceback score against the search score
         (ScoreMismatchError on disagreement).
         """
-        _check_traceback_size(qc, sc)
         t0 = time.perf_counter()
         tb = aligner.align_pair(
             qc, sc, self.matrix.scores, self.gap_open, self.gap_extend,
             local, self.params.first_residue_opens, stats=stats,
+            device=self.device,
         )
         if stats is not None:
             stats.aligner_seconds += time.perf_counter() - t0
@@ -366,6 +374,7 @@ class SSAContext:
         mode: ComputeMode,
         align_type: AlignType,
     ) -> AlignmentList:
+        _own(mode, ComputeMode, "mode")
         if k < 0:
             raise ValueError(f"hit count k must be >= 0, got {k}")
         engine = self._get_engine()
@@ -501,8 +510,13 @@ class SSAContext:
         strand or frame with the long-pair scorer (``ops.longpair``: K3 on
         the card, any pair size, O(m + n) device memory); for genome-scale
         pairs this is the path to use. ``params.kernel`` "plain" pins the
-        plain PyTorch version.
+        plain PyTorch version. ALIGNMENT mode above
+        ``aligner.MATRIX_CELL_LIMIT`` cells runs the linear-space
+        Myers-Miller aligner (``search/hirschberg.py``), whose large levels
+        run on K2 on the card.
         """
+        _own(align_type, AlignType, "align_type")
+        _own(mode, ComputeMode, "mode")
         if self.matrix is None:
             raise RuntimeError("init_score_matrix() must be called first")
         local = align_type is AlignType.SW
@@ -536,14 +550,13 @@ class SSAContext:
                 strand=label,
                 stats=stats,
             )
-        for _, qc in q_seqs:
-            _check_traceback_size(qc, sc)
         t0 = time.perf_counter()
         best = None
         for label, qc in q_seqs:
             tb = aligner.align_pair(
                 qc, sc, self.matrix.scores, self.gap_open, self.gap_extend,
                 local, self.params.first_residue_opens, stats=stats,
+                device=self.device,
             )
             stats.aligner_cells += len(qc) * len(sc)
             if best is None or tb.score > best[1].score:
@@ -582,6 +595,8 @@ class SSAContext:
         runs per-query ``_align`` calls. Every returned list of the batched
         sweep shares one batch-level ``SearchStats``.
         """
+        _own(mode, ComputeMode, "mode")
+        _own(align_type, AlignType, "align_type")
         engine = self._get_engine()
         local = align_type is AlignType.SW
         simple = self.db_symtype is self.matrix.symtype and all(

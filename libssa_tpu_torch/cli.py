@@ -19,9 +19,7 @@ import os
 import sys
 import time
 
-# The reference CLI's output formats and `info`: framework-neutral, shared.
-from libssa_tpu.cli import _hit_json, _print_hit, _symtype, cmd_info
-from libssa_tpu.constants import AlignType, BitWidth, ComputeMode, Strand
+from .constants import AlignType, BitWidth, ComputeMode, Strand, SymType
 
 
 def _add_scoring_args(p: argparse.ArgumentParser):
@@ -51,6 +49,10 @@ def _add_scoring_args(p: argparse.ArgumentParser):
                         "cuda:N or cpu")
 
 
+def _symtype(s):
+    return SymType.AMINOACID if s == "aa" else SymType.NUCLEOTIDE
+
+
 def _configure(args):
     from .api import SSAContext
 
@@ -75,6 +77,35 @@ def _configure(args):
     if args.devices is not None:
         ctx.set_device_count(args.devices)
     return ctx
+
+
+def _print_hit(h, idx: int, show_alignment: bool):
+    frame = f" db_frame={h.db_frame}" if h.db_frame else ""
+    print(f"{idx:3d}. #{h.seq_id:<7d} score={h.score:<7d} strand={h.strand}{frame}  {h.header}")
+    if show_alignment and h.aligned:
+        q_row, mid, s_row = h.aligned
+        print(f"     Q {h.q_begin:>6d} {q_row} {h.q_end}")
+        print(f"     {'':>8s}{mid}")
+        print(f"     S {h.s_begin:>6d} {s_row} {h.s_end}")
+
+
+def _hit_json(hits, header, cells, dt):
+    out = [
+        {
+            "rank": i + 1,
+            "seq_id": h.seq_id,
+            "header": h.header,
+            "score": h.score,
+            "strand": h.strand,
+            "db_frame": h.db_frame,
+            "cigar": h.cigar,
+            "q_range": [h.q_begin, h.q_end] if h.q_begin is not None else None,
+            "s_range": [h.s_begin, h.s_end] if h.s_begin is not None else None,
+        }
+        for i, h in enumerate(hits)
+    ]
+    return {"query": header, "hits": out, "cells": cells,
+            "seconds": round(dt, 4)}
 
 
 @contextlib.contextmanager
@@ -167,6 +198,21 @@ def cmd_pair(args) -> int:
     return 0
 
 
+def cmd_info(args) -> int:
+    from .io.db import SequenceDB
+
+    db = SequenceDB.from_fasta(args.db, _symtype(args.symtype))
+    lengths = db.lengths
+    print(json.dumps({
+        "sequences": len(db),
+        "residues": db.total_residues,
+        "min_length": int(lengths.min()) if len(db) else 0,
+        "max_length": int(lengths.max()) if len(db) else 0,
+        "mean_length": float(lengths.mean()) if len(db) else 0.0,
+    }))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="libssa_tpu_torch", description=__doc__)
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -197,7 +243,8 @@ def main(argv=None) -> int:
     pp.add_argument("--subject", required=True, help="FASTA file or bare sequence")
     pp.add_argument(
         "--score-only", action="store_true",
-        help="score without traceback (the long-pair scorer: K3 on the card)",
+        help="score without traceback (the long-pair scorer: K3 on the card); "
+             "without it, pairs above 16M cells align in linear space on K2",
     )
     _add_scoring_args(pp)
     pp.set_defaults(fn=cmd_pair)

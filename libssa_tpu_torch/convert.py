@@ -24,14 +24,32 @@ def params_from_reference(ref_params):
     return SearchParams(**kw)
 
 
+def db_from_reference(ref_db):
+    """The port's ``SequenceDB`` over a ``libssa_tpu`` database's arrays."""
+    from .constants import SymType
+    from .io.db import SequenceDB
+
+    return SequenceDB(ref_db.codes, ref_db.offsets, ref_db.lengths, ref_db.headers,
+                      SymType[ref_db.symtype.name])
+
+
+def matrix_from_reference(ref_matrix):
+    """The port's ``ScoreMatrix`` with a ``libssa_tpu`` matrix's scores."""
+    from .constants import SymType
+    from .matrices import ScoreMatrix
+
+    return ScoreMatrix(ref_matrix.name, SymType[ref_matrix.symtype.name], ref_matrix.scores)
+
+
 def engine_from_reference(ref_engine, device):
-    """The port's engine over a ``libssa_tpu`` engine's database and scoring."""
+    """The port's engine over a ``libssa_tpu`` engine's database and scoring,
+    carried into the port's own types."""
     from .search.manager import SearchEngine
 
     return SearchEngine(
-        ref_engine.db, ref_engine.matrix, ref_engine.gap_open,
-        ref_engine.gap_extend, params_from_reference(ref_engine.params),
-        device=device,
+        db_from_reference(ref_engine.db), matrix_from_reference(ref_engine.matrix),
+        ref_engine.gap_open, ref_engine.gap_extend,
+        params_from_reference(ref_engine.params), device=device,
     )
 
 

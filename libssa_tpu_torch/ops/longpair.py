@@ -120,7 +120,7 @@ def longpair_score(
     "plain" runs the plain version on ``device``. Empty inputs are
     answered on the host.
     """
-    from libssa_tpu.oracle import gap_qr
+    from ..oracle import gap_qr
 
     Q, R = gap_qr(gap_open, gap_extend, first_residue_opens)
     m, n = len(q_codes), len(s_codes)

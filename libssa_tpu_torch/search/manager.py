@@ -28,15 +28,14 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from libssa_tpu.constants import SCORE_LIMIT_8, SCORE_LIMIT_16, BitWidth
-from libssa_tpu.io.db import SequenceDB
-from libssa_tpu.matrices import ScoreMatrix
-from libssa_tpu.ops.scoring import make_padded_profile
-from libssa_tpu.ops.topk import host_topk
-
+from ..constants import SCORE_LIMIT_8, SCORE_LIMIT_16, BitWidth
 from ..convert import stacks_to_device
+from ..io.db import SequenceDB
+from ..matrices import ScoreMatrix
 from ..ops.interseq_cuda import SCRATCH_BUDGET
 from ..ops.longpair import score_bound
+from ..ops.scoring import make_padded_profile
+from ..ops.topk import host_topk
 
 F32_WINDOW = 2**24 - 1  # the reference's exact f32 integer window
 
@@ -87,7 +86,11 @@ class SearchStats:
     # ``gcups`` stays search cells / search seconds.
     aligner_seconds: float = 0.0
     aligner_cells: int = 0
-    aligner_dispatches: int = 0
+    aligner_dispatches: int = 0  # K2 launches of linear-space tracebacks
+    # Port-only: their Myers-Miller levels on the device, and the wall
+    # seconds of the device passes (launch to fetch) within aligner_seconds.
+    aligner_levels: int = 0
+    aligner_device_seconds: float = 0.0
     notes: list = field(default_factory=list)
 
     @property
@@ -109,6 +112,8 @@ class SearchStats:
         self.aligner_seconds += other.aligner_seconds
         self.aligner_cells += other.aligner_cells
         self.aligner_dispatches += other.aligner_dispatches
+        self.aligner_levels += other.aligner_levels
+        self.aligner_device_seconds += other.aligner_device_seconds
         for k, v in other.rescored.items():
             self.rescored[k] = self.rescored.get(k, 0) + v
         self.notes.extend(other.notes)
@@ -153,8 +158,8 @@ class SearchEngine:
         params: SearchParams | None = None,
         device="cuda",
     ):
-        from libssa_tpu.oracle import gap_qr
-        from libssa_tpu.util.hostmem import retain_large_allocations
+        from ..oracle import gap_qr
+        from ..util.hostmem import retain_large_allocations
 
         retain_large_allocations()
         self.device = resolve_device(device)

@@ -2,7 +2,9 @@
 
 Both contexts get the same configuration and queries; hit lists must be
 equal field by field (ids, scores, strands and frames, coordinates,
-cigars, aligned rows), and so must the search statistics.
+cigars, aligned rows), and so must the search statistics. Each package
+gets its own enums (the port's are its own classes): the tests name the
+port's, and ``_ref`` gives the JAX package's member of the same name.
 """
 import json
 import shutil
@@ -14,12 +16,23 @@ import torch
 
 from libssa_tpu import api as jax_api
 from libssa_tpu import cli as jax_cli
-from libssa_tpu.constants import AlignType, BitWidth, ComputeMode, Strand, SymType
+from libssa_tpu import constants as jax_constants
+from libssa_tpu.search import aligner as jax_aligner
+from libssa_tpu.search import hirschberg as jax_hirschberg
 from libssa_tpu_torch import api, cli
+from libssa_tpu_torch.constants import AlignType, BitWidth, ComputeMode, Strand, SymType
+from libssa_tpu_torch.search import aligner, hirschberg
 
 torch.set_num_threads(1)
 
 TESTDATA = Path(__file__).parent / "testdata"
+
+
+def _ref(member):
+    """The JAX package's enum member of the same name (None stays None)."""
+    if member is None:
+        return None
+    return getattr(jax_constants, type(member).__name__)[member.name]
 
 
 def _fixture(tmp_path, name):
@@ -34,8 +47,10 @@ def _contexts(tmp_path, db="proteins.fas", symtype=SymType.AMINOACID,
               gaps=(10, 1), chunk=16):
     db_path = _fixture(tmp_path, db)
     out = []
-    for ctx in (jax_api.SSAContext(), api.SSAContext(device="cpu")):
-        ctx.init_symbol_translation(symtype, strands, 1, 1, db_symtype=db_symtype)
+    for ctx, enum in ((jax_api.SSAContext(), _ref), (api.SSAContext(device="cpu"), None)):
+        enum = enum or (lambda e: e)
+        ctx.init_symbol_translation(enum(symtype), enum(strands), 1, 1,
+                                    db_symtype=enum(db_symtype))
         if constant:
             ctx.init_constant_scoring(*constant)
         else:
@@ -49,7 +64,7 @@ def _contexts(tmp_path, db="proteins.fas", symtype=SymType.AMINOACID,
 
 def _hits(hl):
     return [
-        (h.seq_id, h.header, h.score, h.align_type, h.strand, h.db_frame,
+        (h.seq_id, h.header, h.score, h.align_type.name, h.strand, h.db_frame,
          h.q_begin, h.q_end, h.s_begin, h.s_end, h.cigar, h.aligned)
         for h in hl
     ]
@@ -75,7 +90,7 @@ def test_protein_search_matches(tmp_path, algo, bw, mode):
     qfile = _fixture(tmp_path, "query_prot.fas")
     q_ref, q_port = ref.init_sequence_fasta(qfile), port.init_sequence_fasta(qfile)
     fn = "sw_align" if algo == "sw" else "nw_align"
-    want = getattr(ref, fn)(q_ref, 10, bw, mode)
+    want = getattr(ref, fn)(q_ref, 10, _ref(bw), _ref(mode))
     got = getattr(port, fn)(q_port, 10, bw, mode)
     _same(got, want)
     if mode is ComputeMode.ALIGNMENT:
@@ -90,7 +105,7 @@ def test_align_many_matches(tmp_path, mode):
     q_ref = ref.init_sequences_fasta(qfile)[:5]
     q_port = port.init_sequences_fasta(qfile)[:5]
     for algo in (AlignType.SW, AlignType.NW):
-        want = ref.align_many(q_ref, 6, mode, algo, BitWidth.BIT8)
+        want = ref.align_many(q_ref, 6, _ref(mode), _ref(algo), _ref(BitWidth.BIT8))
         got = port.align_many(q_port, 6, mode, algo, BitWidth.BIT8)
         assert len(got) == len(want) == 5
         for g, w in zip(got, want):
@@ -106,8 +121,8 @@ def test_nucleotide_both_strands_matches(tmp_path):
     q_ref, q_port = ref.init_sequence_fasta(qfile), port.init_sequence_fasta(qfile)
     assert len(q_port.sequences) == 2
     for mode in (ComputeMode.SCORE, ComputeMode.ALIGNMENT):
-        _same(port.sw_align(q_port, 8, mode=mode), ref.sw_align(q_ref, 8, mode=mode))
-        _same(port.nw_align(q_port, 8, mode=mode), ref.nw_align(q_ref, 8, mode=mode))
+        _same(port.sw_align(q_port, 8, mode=mode), ref.sw_align(q_ref, 8, mode=_ref(mode)))
+        _same(port.nw_align(q_port, 8, mode=mode), ref.nw_align(q_ref, 8, mode=_ref(mode)))
     strands = {h.strand for h in port.sw_align(q_port, 8)}
     assert strands <= {"+", "-"}
 
@@ -122,7 +137,7 @@ def test_translated_query_matches(tmp_path):
     q_ref, q_port = ref.init_sequence_fasta(qfile), port.init_sequence_fasta(qfile)
     for bw in (BitWidth.EXACT, BitWidth.BIT8):
         _same(port.sw_align(q_port, 6, bw, ComputeMode.ALIGNMENT),
-              ref.sw_align(q_ref, 6, bw, ComputeMode.ALIGNMENT))
+              ref.sw_align(q_ref, 6, _ref(bw), _ref(ComputeMode.ALIGNMENT)))
 
 
 def test_translated_db_matches(tmp_path):
@@ -135,7 +150,7 @@ def test_translated_db_matches(tmp_path):
     q_ref, q_port = ref.init_sequence_fasta(qfile), port.init_sequence_fasta(qfile)
     for algo in ("sw_align", "nw_align"):
         got = getattr(port, algo)(q_port, 6, mode=ComputeMode.ALIGNMENT)
-        _same(got, getattr(ref, algo)(q_ref, 6, mode=ComputeMode.ALIGNMENT))
+        _same(got, getattr(ref, algo)(q_ref, 6, mode=_ref(ComputeMode.ALIGNMENT)))
         assert all(h.db_frame for h in got)
 
 
@@ -144,7 +159,8 @@ def test_align_pair_matches(tmp_path):
     q_ref = ref.init_sequence_fasta("MKVLAAGIVGWKQTERNDCFYHH")
     q_port = port.init_sequence_fasta("MKVLAAGIVGWKQTERNDCFYHH")
     for at in (AlignType.NW, AlignType.SW):
-        a, b = port.align_pair(q_port, "AAGIVGWKQTE", at), ref.align_pair(q_ref, "AAGIVGWKQTE", at)
+        a = port.align_pair(q_port, "AAGIVGWKQTE", at)
+        b = ref.align_pair(q_ref, "AAGIVGWKQTE", _ref(at))
         assert _hits([a]) == _hits([b])
         assert a.stats.aligner_cells == b.stats.aligner_cells
 
@@ -167,7 +183,7 @@ def test_align_pair_score_matches(tmp_path, algo):
     runs.append((port, q_port, ref, q_ref, subject))
     for port, q_port, ref, q_ref, subject in runs:
         a = port.align_pair(q_port, subject, algo, ComputeMode.SCORE)
-        b = ref.align_pair(q_ref, subject, algo, ComputeMode.SCORE)
+        b = ref.align_pair(q_ref, subject, _ref(algo), _ref(ComputeMode.SCORE))
         assert _hits([a]) == _hits([b])
         assert a.cigar is None
         st_a, st_b = a.stats, b.stats
@@ -176,20 +192,70 @@ def test_align_pair_score_matches(tmp_path, algo):
         assert st_a.cells == len(subject) * sum(len(c) for _, c in q_port.sequences)
 
 
-def test_later_slices_raise_not_implemented(tmp_path, monkeypatch):
-    from libssa_tpu.search import aligner
-
+def test_later_slices_raise_not_implemented(tmp_path):
     _, port = _contexts(tmp_path)
     q = port.init_sequence_fasta(_fixture(tmp_path, "query_prot.fas"))
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         port.set_device_count(2)
     port.set_device_count(1)
-    monkeypatch.setattr(aligner, "MATRIX_CELL_LIMIT", 100)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        port.sw_align(q, 3, mode=ComputeMode.ALIGNMENT)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        port.align_pair(q, "MKVLAAGW" * 10, AlignType.NW)
-    assert len(port.sw_align(q, 3)) == 3  # SCORE mode needs no traceback
+    assert len(port.sw_align(q, 3)) == 3
+
+
+@pytest.fixture
+def linear_space(monkeypatch):
+    """Both packages' tracebacks above a lowered MATRIX_CELL_LIMIT, with a
+    small common LEAF_CELLS so the recursion has levels; the port's levels
+    run on DevicePair (K2's plain version on the CPU)."""
+    for mod in (aligner, jax_aligner):
+        monkeypatch.setattr(mod, "MATRIX_CELL_LIMIT", 100)
+    for mod in (hirschberg, jax_hirschberg):
+        monkeypatch.setattr(mod, "LEAF_CELLS", 256)
+    monkeypatch.setattr(hirschberg, "DEVICE_ON_CPU", True)
+    monkeypatch.setattr(hirschberg, "DEVICE_MIN_CELLS", 1024)
+
+
+@pytest.mark.parametrize("algo", [AlignType.SW, AlignType.NW], ids=["sw", "nw"])
+def test_align_pair_linear_space_matches(tmp_path, linear_space, algo):
+    """ALIGNMENT-mode align_pair above the full-matrix limit: the
+    linear-space aligner, equal to the JAX package's (score, coordinates,
+    cigar, aligned rows)."""
+    ref, port = _contexts(tmp_path)
+    seq = "MKVLAAGIVGWKQTERNDCFYHHWWKVLAAGSTPQRNDE" * 3
+    q_ref, q_port = ref.init_sequence_fasta(seq), port.init_sequence_fasta(seq)
+    subject = "AAGIVGWKQTEWWKVLAAGPPPRNDCFYHAAGIVGWKQTERNDCF" * 2
+    a = port.align_pair(q_port, subject, algo)
+    b = ref.align_pair(q_ref, subject, _ref(algo))
+    assert _hits([a]) == _hits([b]) and a.cigar
+    assert a.stats.aligner_cells == b.stats.aligner_cells
+    assert a.stats.aligner_dispatches > 0  # DevicePair ran
+
+
+def test_search_hit_traceback_linear_space_matches(tmp_path, linear_space):
+    """Search hits' tracebacks above the full-matrix limit (_fill_traceback)."""
+    ref, port = _contexts(tmp_path)
+    qfile = _fixture(tmp_path, "query_prot.fas")
+    q_ref, q_port = ref.init_sequence_fasta(qfile), port.init_sequence_fasta(qfile)
+    for fn in ("sw_align", "nw_align"):
+        got = getattr(port, fn)(q_port, 4, BitWidth.EXACT, ComputeMode.ALIGNMENT)
+        _same(got, getattr(ref, fn)(q_ref, 4, _ref(BitWidth.EXACT), _ref(ComputeMode.ALIGNMENT)))
+        assert all(h.cigar for h in got)
+        assert got.stats.aligner_dispatches > 0
+
+
+def test_foreign_enums_raise_type_error(tmp_path):
+    """A JAX-package enum is not the port's: refused, never misrouted."""
+    _, port = _contexts(tmp_path)
+    q = port.init_sequence_fasta("MKVLAAGWKQTE")
+    with pytest.raises(TypeError, match="align_type"):
+        port.align_pair(q, "MKVIGAGW", _ref(AlignType.SW))
+    with pytest.raises(TypeError, match="mode"):
+        port.align_pair(q, "MKVIGAGW", AlignType.SW, _ref(ComputeMode.SCORE))
+    with pytest.raises(TypeError, match="mode"):
+        port.sw_align(q, 3, BitWidth.EXACT, _ref(ComputeMode.ALIGNMENT))
+    with pytest.raises(TypeError, match="align_type"):
+        port.align_many([q], 3, ComputeMode.SCORE, _ref(AlignType.NW))
+    with pytest.raises(TypeError, match="symtype"):
+        port.init_symbol_translation(_ref(SymType.NUCLEOTIDE))
 
 
 def test_device_must_be_explicit():

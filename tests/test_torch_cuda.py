@@ -1,8 +1,9 @@
-"""K1, K3 and the search engine on an NVIDIA GPU, against the plain version.
+"""K1, K3, K2, the search engine and the linear-space traceback on an
+NVIDIA GPU, against the plain version and the CPU.
 
 Every test here needs a card: it is marked ``cuda`` and skips without one.
-The file imports no JAX, so it also runs where JAX is not installed; on a
-machine with a card:
+The file imports neither JAX nor the JAX package, so it also runs where
+they are not installed; on a machine with a card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
@@ -13,11 +14,20 @@ import numpy as np
 import pytest
 import torch
 
-from libssa_tpu import matrices
-from libssa_tpu.constants import BitWidth, SymType
-from libssa_tpu.io.db import PAD_CODE, SequenceDB
-from libssa_tpu.ops.scoring import make_padded_profile
-from libssa_tpu_torch.ops import interseq, interseq_cuda, longpair, longpair_cuda
+from libssa_tpu_torch import matrices, oracle
+from libssa_tpu_torch.constants import BitWidth, SymType
+from libssa_tpu_torch.io.db import PAD_CODE, SequenceDB
+from libssa_tpu_torch.ops import (
+    interseq,
+    interseq_cuda,
+    longpair,
+    longpair_cuda,
+    ring_block,
+    ring_block_cuda,
+)
+from libssa_tpu_torch.ops.mm_device import DevicePair
+from libssa_tpu_torch.ops.scoring import make_padded_profile
+from libssa_tpu_torch.search import hirschberg
 from libssa_tpu_torch.search.manager import SearchEngine, SearchParams, SearchStats
 
 B62 = matrices.builtin("BLOSUM62")
@@ -29,7 +39,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (K1 and K3 have no CPU mode)")
+        pytest.skip("needs an NVIDIA GPU (K1, K2 and K3 have no CPU mode)")
     return torch.device("cuda", 0)
 
 
@@ -180,3 +190,101 @@ def test_pair_scores_batch_on_card_equals_cpu(dev):
         )
         assert interseq_cuda.launches == before + 1
         assert torch.equal(got.cpu(), want)
+
+
+def _tiles(rng, dev, local, dtype, n_jobs=6):
+    """Mixed tiles of one random pair with consistent random boundaries:
+    leftE/topF one gap below leftH/topH, as a real DP's never exceed them."""
+    q = torch.as_tensor(rng.integers(0, 20, 900).astype(np.uint8)).to(dev)
+    s = torch.as_tensor(rng.integers(0, 20, 700).astype(np.uint8)).to(dev)
+    jobs = []
+    for _ in range(n_jobs):
+        RB, W = int(rng.choice([1, 31, 33, 257, 600])), int(rng.choice([1, 32, 45, 300]))
+        jobs.append([int(rng.integers(0, 900 - RB + 1)), RB, int(rng.integers(0, 700 - W + 1)), W])
+    jobs = np.array(jobs, np.int64)
+    n_rows, n_cols = int(jobs[:, 1].sum()), int(jobs[:, 3].sum())
+    lo = 0 if local else -500
+    h = lambda k: torch.as_tensor(rng.integers(lo, 300, k)).to(dtype).to(dev)
+    leftH, topH = h(n_rows + len(jobs)), h(n_cols)
+    gap = lambda k: torch.as_tensor(rng.integers(11, 40, k)).to(dtype).to(dev)
+    leftE = h(n_rows) - gap(n_rows)
+    return q, s, jobs, leftH, leftE, topH, topH - gap(n_cols)
+
+
+@pytest.mark.parametrize("ch", ring_block_cuda.BAND_ROWS)
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
+@pytest.mark.parametrize("local", [True, False], ids=["sw", "nw"])
+def test_k2_matches_plain(dev, local, dtype, ch):
+    """One launch of mixed tiles (RB or W = 1, stripe edges crossed)."""
+    rng = np.random.default_rng(61 + ch + local)
+    mat = torch.as_tensor(PADDED.astype(np.int32)).to(dev)
+    q, s, jobs, *bounds = _tiles(rng, dev, local, dtype)
+    before = ring_block_cuda.launches
+    got = ring_block_cuda.ring_block_cuda(q, s, jobs, mat, 12, 1, local, *bounds,
+                                          rows_per_thread=ch)
+    torch.cuda.synchronize()
+    assert ring_block_cuda.launches == before + 1
+    want = ring_block_cuda.ring_block_cuda(q.cpu(), s.cpu(), jobs, mat.cpu(), 12, 1, local,
+                                           *(b.cpu() for b in bounds))
+    for name, g, w in zip(ring_block.Tiles._fields, got, want):
+        assert (g is None) == (w is None), name
+        if w is not None:
+            assert g.dtype == w.dtype and torch.equal(g.cpu(), w), name
+
+
+def test_k2_staged_launch_repeats(dev):
+    """``stage`` then its launch, twice: each call is one K2 launch and gives
+    the one-call wrapper's outputs; codes_checked skips only the code check."""
+    rng = np.random.default_rng(67)
+    mat = torch.as_tensor(PADDED.astype(np.int32)).to(dev)
+    q, s, jobs, *bounds = _tiles(rng, dev, True, torch.int32)
+    want = ring_block_cuda.ring_block_cuda(q, s, jobs, mat, 12, 1, True, *bounds)
+    launch = ring_block_cuda.stage(q, s, jobs, mat, 12, 1, True, *bounds, codes_checked=True)
+    before = ring_block_cuda.launches
+    for k in (1, 2):
+        got = launch()
+        torch.cuda.synchronize()
+        assert ring_block_cuda.launches == before + k
+        for name, g, w in zip(ring_block.Tiles._fields, got, want):
+            assert torch.equal(g, w), name
+
+
+def test_k2_wrapper_rejects_what_it_cannot_take(dev):
+    mat = torch.as_tensor(PADDED.astype(np.int32)).to(dev)
+    q = torch.zeros(40, dtype=torch.uint8, device=dev)
+    b = [torch.zeros(k, dtype=torch.int32, device=dev) for k in (41, 40, 40, 40)]
+    jobs = [[0, 40, 0, 40]]
+    with pytest.raises(TypeError, match="q_codes"):
+        ring_block_cuda.ring_block_cuda(q.int(), q, jobs, mat, 12, 1, True, *b)
+    with pytest.raises(ValueError, match="device"):
+        ring_block_cuda.ring_block_cuda(q, q, jobs, mat, 12, 1, True, b[0].cpu(), *b[1:])
+    with pytest.raises(ValueError, match="codes"):
+        ring_block_cuda.ring_block_cuda(q + 32, q, jobs, mat, 12, 1, True, *b)
+    with pytest.raises(ValueError, match="rows_per_thread"):
+        ring_block_cuda.ring_block_cuda(q, q, jobs, mat, 12, 1, True, *b, rows_per_thread=2)
+
+
+@pytest.mark.parametrize("local", [True, False], ids=["sw", "nw"])
+def test_device_pair_on_card_equals_cpu(dev, local, monkeypatch):
+    """Divide levels and end cells on K2 equal DevicePair on the plain
+    version, and the traceback (its levels on K2) equals the CPU's NumPy
+    passes."""
+    monkeypatch.setattr(hirschberg, "DEVICE_MIN_CELLS", 1 << 16)
+    monkeypatch.setattr(hirschberg, "LEAF_CELLS", 1 << 14)
+    rng = np.random.default_rng(71 + local)
+    q = rng.integers(0, 20, 1500).astype(np.uint8)
+    s = rng.integers(0, 20, 1300).astype(np.uint8)
+    s[200:900] = q[300:1000]
+    Q, R = oracle.gap_qr(11, 1)
+    pairs = [DevicePair(q, s, PADDED, Q, R, device=d) for d in (dev, "cpu")]
+    nodes = [(0, 1500, 0, 1300, False, False), (10, 700, 5, 640, True, False),
+             (700, 1499, 640, 1290, False, True)]
+    assert pairs[0].divide_level(nodes) == pairs[1].divide_level(nodes)
+    assert pairs[0].sw_end(0, 1500, 0, 1300) == pairs[1].sw_end(0, 1500, 0, 1300)
+    assert pairs[0].sw_end(3, 900, 7, 800, True) == pairs[1].sw_end(3, 900, 7, 800, True)
+    st = SearchStats()
+    got = hirschberg.align_pair_linear(q, s, B62.scores, 10, 1, local, stats=st, device=dev)
+    want = hirschberg.align_pair_linear(q, s, B62.scores, 10, 1, local, device="cpu")
+    assert st.aligner_levels > 0
+    assert (got.score, got.q_begin, got.s_begin, got.cigar) == (
+        want.score, want.q_begin, want.s_begin, want.cigar)

@@ -1,10 +1,14 @@
-"""The port runs with JAX absent.
+"""The port runs with JAX and the JAX package absent.
 
 Each check runs in a fresh interpreter: ``tests/conftest.py`` imports JAX
 into every test process, so only a subprocess can show that the port
-never needs it. ``sys.modules["jax"] = None`` makes any import of JAX
-raise, and the child also asserts that no ``jax`` module was loaded.
+never needs it. ``sys.modules["jax"] = None`` and
+``sys.modules["libssa_tpu"] = None`` make any import of either raise, and
+the child also asserts that no ``jax`` module was loaded. An AST scan of
+the port's sources and ``chip_smoke.py`` refuses any import of
+``libssa_tpu`` at all, even of a module that would not import JAX.
 """
+import ast
 import json
 import os
 import shutil
@@ -20,6 +24,7 @@ TESTDATA = ROOT / "tests" / "testdata"
 _PRELUDE = """
 import sys
 sys.modules["jax"] = None
+sys.modules["libssa_tpu"] = None
 sys.path.insert(0, {root!r})
 """
 
@@ -32,7 +37,7 @@ _API = """
 import json
 import torch
 torch.set_num_threads(1)
-from libssa_tpu.constants import BitWidth, ComputeMode
+from libssa_tpu_torch.constants import BitWidth, ComputeMode
 import libssa_tpu_torch.api as ssa
 
 ctx = ssa.SSAContext(device="cpu")
@@ -58,9 +63,9 @@ import json
 import numpy as np
 import torch
 torch.set_num_threads(1)
-from libssa_tpu import matrices
-from libssa_tpu.constants import AlignType, ComputeMode
-from libssa_tpu.ops.scoring import make_profile
+from libssa_tpu_torch import matrices
+from libssa_tpu_torch.constants import AlignType, ComputeMode
+from libssa_tpu_torch.ops.scoring import make_profile
 import libssa_tpu_torch.api as ssa
 from libssa_tpu_torch import cli
 from libssa_tpu_torch.ops import interseq
@@ -81,6 +86,28 @@ print(json.dumps({{"hits": [a.score, *s.tolist()]}}))
 """
 
 
+_TRACEBACK = """
+import json
+import torch
+torch.set_num_threads(1)
+from libssa_tpu_torch.constants import AlignType, ComputeMode
+import libssa_tpu_torch.api as ssa
+from libssa_tpu_torch.search import aligner, hirschberg
+
+aligner.MATRIX_CELL_LIMIT = 100  # the linear-space aligner
+hirschberg.LEAF_CELLS = 256
+hirschberg.DEVICE_ON_CPU = True  # its levels on K2's plain version
+hirschberg.DEVICE_MIN_CELLS = 1024
+ctx = ssa.SSAContext(device="cpu")
+ctx.init_score_matrix("BLOSUM62")
+ctx.init_gap_penalties(10, 1)
+q = ctx.init_sequence_fasta("MKVLAAGIVGWKQTERNDCFYHHWWKVLAAG" * 3)
+hits = [ctx.align_pair(q, "AAGIVGWKQTEWWKVLAAGPPPRNDCFYH" * 2, at) for at in AlignType]
+assert all(h.stats.aligner_dispatches > 0 for h in hits)
+print(json.dumps({{"hits": [[h.score, h.cigar] for h in hits] * 2}}))
+"""
+
+
 def _run(body: str, tmp_path) -> subprocess.CompletedProcess:
     db = tmp_path / "proteins.fas"  # a private copy: packed-DB caches never race
     query = tmp_path / "query_prot.fas"
@@ -95,17 +122,42 @@ def _run(body: str, tmp_path) -> subprocess.CompletedProcess:
     )
 
 
-@pytest.mark.parametrize("entry", ["api", "cli", "score"])
+@pytest.mark.parametrize("entry", ["api", "cli", "score", "traceback"])
 def test_port_runs_without_jax(tmp_path, entry):
-    """Search (API, CLI) and the 1-vs-1 score path (align_pair SCORE,
-    ``pair --score-only``, pair_scores_batch)."""
-    proc = _run({"api": _API, "cli": _CLI, "score": _SCORE}[entry], tmp_path)
+    """Search (API, CLI), the 1-vs-1 score path (align_pair SCORE,
+    ``pair --score-only``, pair_scores_batch) and the linear-space
+    traceback (ALIGNMENT-mode align_pair above MATRIX_CELL_LIMIT)."""
+    bodies = {"api": _API, "cli": _CLI, "score": _SCORE, "traceback": _TRACEBACK}
+    proc = _run(bodies[entry], tmp_path)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     hits = out if entry == "api" else out["hits"]
     assert len(hits) >= 3
     if entry == "api":
         assert all(cigar for _, _, cigar in hits)
+
+
+def _imports_of_reference(path: Path) -> list[str]:
+    """Every module name ``path`` imports from the JAX package."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        found += [n for n in names if n == "libssa_tpu" or n.startswith("libssa_tpu.")]
+    return found
+
+
+def test_port_sources_never_import_the_jax_package():
+    """No module of the port, and not chip_smoke.py, imports libssa_tpu."""
+    sources = sorted((ROOT / "libssa_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(sources) > 20
+    bad = {str(p.relative_to(ROOT)): names for p in sources
+           if (names := _imports_of_reference(p))}
+    assert not bad, bad
 
 
 def _smoke(script: Path, cwd: Path) -> subprocess.CompletedProcess:

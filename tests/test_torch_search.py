@@ -10,12 +10,15 @@ import pytest
 import torch
 
 from libssa_tpu import matrices
-from libssa_tpu.constants import BitWidth, SymType
+from libssa_tpu.constants import BitWidth as JaxBitWidth
+from libssa_tpu.constants import SymType
 from libssa_tpu.io.db import SequenceDB
 from libssa_tpu.ops.scoring import make_padded_profile
 from libssa_tpu.search import kernels as jax_kernels
 from libssa_tpu.search import manager as jax_manager
-from libssa_tpu_torch.convert import engine_from_reference, stacks_to_device
+from libssa_tpu_torch import matrices as port_matrices
+from libssa_tpu_torch.constants import BitWidth
+from libssa_tpu_torch.convert import db_from_reference, engine_from_reference, stacks_to_device
 from libssa_tpu_torch.search import kernels, manager
 
 torch.set_num_threads(1)
@@ -181,7 +184,7 @@ def test_best_kernel_choices():
 def test_rungs_match():
     for bw in BitWidth:
         for dt in ("float32", "int32", "int64"):
-            assert manager._rungs(bw, dt) == jax_manager._rungs(bw, dt)
+            assert manager._rungs(bw, dt) == jax_manager._rungs(JaxBitWidth(bw), dt)
 
 
 def _stats_key(st):
@@ -212,7 +215,7 @@ def test_engine_search_matches(homolog_db, local, bw):
     rescored = {}
     for q in (seqs[4], seqs[7][:33]):
         s_ref, s_eng = jax_manager.SearchStats(), manager.SearchStats()
-        want = ref.search(q, 6, local, bw, s_ref)
+        want = ref.search(q, 6, local, JaxBitWidth(bw), s_ref)
         got = eng.search(q, 6, local, bw, s_eng)
         _same_hits(got, want)
         assert _stats_key(s_eng) == _stats_key(s_ref)
@@ -226,7 +229,7 @@ def test_engine_score_all_ladder_matches(homolog_db, bw):
     db, seqs = homolog_db
     ref, eng = _pair(db)
     s_ref, s_eng = jax_manager.SearchStats(), manager.SearchStats()
-    want = ref.score_all(seqs[4], True, bw, s_ref)
+    want = ref.score_all(seqs[4], True, JaxBitWidth(bw), s_ref)
     got = eng.score_all(seqs[4], True, bw, s_eng)
     np.testing.assert_array_equal(got, want)
     assert _stats_key(s_eng) == _stats_key(s_ref)
@@ -241,7 +244,7 @@ def test_engine_search_many_matches(homolog_db, bw):
     qs = [seqs[4], seqs[2][:30], seqs[10], seqs[5][:12]]
     for local in (True, False):
         s_ref, s_eng = jax_manager.SearchStats(), manager.SearchStats()
-        want = ref.search_many(qs, 5, local, s_ref, bw)
+        want = ref.search_many(qs, 5, local, s_ref, JaxBitWidth(bw))
         got = eng.search_many(qs, 5, local, s_eng, bw)
         for g, w in zip(got, want):
             _same_hits(g, w)
@@ -255,7 +258,7 @@ def test_engine_search_reduced_matches(homolog_db):
     group_of = (np.arange(len(db)) // 3).astype(np.int32)
     for bw in (BitWidth.EXACT, BitWidth.BIT8, BitWidth.BIT64):
         s_ref, s_eng = jax_manager.SearchStats(), manager.SearchStats()
-        want = ref.search_reduced(frames, group_of, 5, True, s_ref, bw)
+        want = ref.search_reduced(frames, group_of, 5, True, s_ref, JaxBitWidth(bw))
         got = eng.search_reduced(frames, group_of, 5, True, s_eng, bw)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
@@ -270,7 +273,7 @@ def test_engine_pinned_dtypes_match(small_db, dtype):
         for local in (True, False):
             s_ref, s_eng = jax_manager.SearchStats(), manager.SearchStats()
             _same_hits(eng.search(seqs[5], 7, local, bw, s_eng),
-                       ref.search(seqs[5], 7, local, bw, s_ref))
+                       ref.search(seqs[5], 7, local, JaxBitWidth(bw), s_ref))
             assert _stats_key(s_eng) == _stats_key(s_ref)
 
 
@@ -283,7 +286,7 @@ def test_engine_forced_f32_window_escapes(homolog_db, monkeypatch):
     q = seqs[4]
     for local in (True, False):
         s_ref, s_eng = jax_manager.SearchStats(), manager.SearchStats()
-        exact = ref.search(q, 6, local, BitWidth.EXACT, s_ref)
+        exact = ref.search(q, 6, local, JaxBitWidth.EXACT, s_ref)
         _same_hits(eng.search(q, 6, local, BitWidth.EXACT, s_eng), exact)
         assert _stats_key(s_eng) == _stats_key(s_ref)
         assert s_eng.dispatches > 1  # the full-matrix fallback ran
@@ -300,7 +303,7 @@ def test_engine_forced_f32_window_escapes(homolog_db, monkeypatch):
             assert "limit>90" in st.rescored
     s_ref, s_eng = jax_manager.SearchStats(), manager.SearchStats()
     np.testing.assert_array_equal(eng.score_all(q, True, BitWidth.EXACT, s_eng),
-                                  ref.score_all(q, True, BitWidth.EXACT, s_ref))
+                                  ref.score_all(q, True, JaxBitWidth.EXACT, s_ref))
     assert _stats_key(s_eng) == _stats_key(s_ref)
     assert "limit>90" in s_eng.rescored
 
@@ -322,11 +325,12 @@ def test_engine_device_is_explicit(small_db):
     db, _ = small_db
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    db, b62 = db_from_reference(db), port_matrices.builtin("BLOSUM62")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        manager.SearchEngine(db, B62, 10, 1)
+        manager.SearchEngine(db, b62, 10, 1)
     with pytest.raises(ValueError, match="unsupported device"):
-        manager.SearchEngine(db, B62, 10, 1, device="meta")
-    assert manager.SearchEngine(db, B62, 10, 1, device="cpu").device.type == "cpu"
+        manager.SearchEngine(db, b62, 10, 1, device="meta")
+    assert manager.SearchEngine(db, b62, 10, 1, device="cpu").device.type == "cpu"
 
 
 def test_stacks_to_device_layout(small_db):
