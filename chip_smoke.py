@@ -6,7 +6,9 @@ Drives the port's main path — database search through ``SearchEngine`` and
 ``SSAContext`` — on the card, at the flagship database size of ``bench.py``
 (500,000 lognormal subjects, about 174M residues). Phases, one line each:
 
-1. build K1 (``libssa_tpu_torch/csrc/interseq.cu``) with nvcc;
+1. build K1 (``libssa_tpu_torch/csrc/interseq.cu``) with nvcc, and beside
+   it K3, K2, the probes (``csrc/probes.cu``, ``csrc/lp_rowsweep.cu``) and
+   K3's stage-cut builds, one nvcc each, all in parallel;
 2. K1 against its plain PyTorch version on random inputs (exact equality);
 3. the 500k-subject search: 8 queries through ``search_many`` (SW, k=10),
    one NW and one BIT8 query through ``search``, with K1's launch count;
@@ -45,7 +47,13 @@ Drives the port's main path — database search through ``SearchEngine`` and
     100,000 x 100,000 random protein pair, BLOSUM62 11/1, SW and NW, whose
     score equals K3's, whose path re-scores to it and consumes its span;
     with K2's launch count, the levels and the seconds on the device and
-    on the host.
+    on the host;
+12. the probes (``libssa_tpu_torch/experiments/``, the counterparts of the
+    TPU probes in ``experiments/``): each at its JAX probe's shape, with
+    their launch counts; each exact one against its plain version at
+    reduced trips (exact equality); the op-rate table (latency at one warp
+    an SM, throughput at full occupancy), the row sweep and K3's stage
+    cuts at 16,384^2 and 100,000^2 beside the production K3.
 
 The second-to-last line is a JSON object with each kernel's launches by
 the main path, its largest difference from the plain version, its time,
@@ -75,22 +83,31 @@ K3_REPLACES = "libssa_tpu/ops/longpair_pallas.py:96"
 K3_SOURCE = "libssa_tpu_torch/csrc/longpair.cu"
 K2_REPLACES = "libssa_tpu/ops/ring_block_pallas.py:68"
 K2_SOURCE = "libssa_tpu_torch/csrc/ring_block.cu"
+PROBES_SOURCE = "libssa_tpu_torch/csrc/probes.cu"
+ROWSWEEP_SOURCE = "libssa_tpu_torch/csrc/lp_rowsweep.cu"
 TRACE_PAIR = 100_000  # phase 11b: m = n, the reference's largest traceback demo
 # The least time for a kernel's work (the kernels line's bound_ms): the
 # larger of bytes over HBM's rate and integer operations over the int32
 # rate. One H100 SXM: 3.35 TB/s; 67 TFLOP/s float32 is 128 FP32 lanes an SM
-# at two flops a fused multiply-add, and Hopper has half as many INT32
-# lanes, so 67e12 / 4 int32 operations a second.
+# at two flops a fused multiply-add, and the data sheet's int32 rate is half
+# that, 67e12 / 4 operations a second. Phase 12 measures int32 add and max
+# above it (21.5-21.8e12 a second, r2_ilp_probe at full occupancy; PERF.md
+# §6), so the bound keeps the data sheet's rate as its denominator.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 # The fewest int32 instructions a DP cell of Gotoh's recurrence needs on
-# Hopper, with its DPX instructions each counted as one operation:
-# h = __vimax3_s32(diag + s, e, f) is an add and a max3 (SW's floor at 0
-# rides in __vimax3_s32_relu); t = h - Q is shared by both gaps;
-# e' = __viaddmax_s32(e, -R, t) and f' likewise: 5 for NW. SW's running
-# max of H folds two cells into one __vimax3_s32: 5.5. K1's track_range
-# adds the running min the same way: 0.5.
-OPS_NW, OPS_SW, OPS_TRACK = 5, 5.5, 0.5
+# Hopper: h = __vimax3_s32(diag + s, e, f) is an add and a DPX max3 (SW's
+# floor at 0 rides in __vimax3_s32_relu); t = h - Q is shared by both gaps;
+# e' = __viaddmax_s32(e, -R, t) and f' likewise: 2 adds and 3 DPX for NW.
+# SW's running max of H folds two cells into one __vimax3_s32: 3.5 DPX.
+# K1's track_range adds the running min the same way: 0.5 DPX. Phase 12
+# measures a DPX instruction (__viaddmax_s32, __vimax3_s32, its _relu form)
+# issuing at 13.2e12 a second at full occupancy, below the int32 rate
+# (r2_ilp_probe's max_add_dpx, max3_dpx, max3_relu_dpx; PERF.md §6), so
+# one counts DPX_COST operations, its measured cost.
+DPX_PER_S = 13.2e12
+DPX_COST = INT32_OPS_PER_S / DPX_PER_S  # 1.27
+OPS_NW, OPS_SW, OPS_TRACK = 2 + 3 * DPX_COST, 2 + 3.5 * DPX_COST, 0.5 * DPX_COST
 PAIR_PROTEIN = 16_384  # phase 8a: m = n, the shape libssa_tpu/api.py names
 PAIR_GENOME = 100_000  # phase 8b: m = n, 10**10 cells a strand
 BATCH_M, BATCH_P = 512, 2048  # phase 9: BASELINE config 1's batched half
@@ -392,8 +409,10 @@ def cuda_ms(fn, reps=3):
 
 
 def build_kernels():
-    """Phase 1: one nvcc per source, all started together."""
+    """Phase 1: one nvcc per source (and per K3 stage-cut set), all started
+    together."""
     import concurrent.futures
+    import functools
 
     from libssa_tpu_torch.ops import interseq_cuda, longpair_cuda, ring_block_cuda
 
@@ -403,11 +422,18 @@ def build_kernels():
         lib()
         return time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        t_k1, t_k3, t_k2 = pool.map(
-            build, (interseq_cuda._lib, longpair_cuda._lib, ring_block_cuda._lib))
-    say(f"phase 1 build K1 ({K1_SOURCE}), K3 ({K3_SOURCE}) and K2 ({K2_SOURCE}), "
-        f"nvcc sm_90a in parallel: ok, K1 {t_k1:.1f} s, K3 {t_k3:.1f} s, K2 {t_k2:.1f} s")
+    from libssa_tpu_torch.experiments import _common, r3_banded_bisect, r3_lp_bisect
+
+    cuts = [functools.partial(longpair_cuda._lib, r3_banded_bisect.CUTS[v])
+            for v in r3_banded_bisect.CUTS if v != "full"]
+    libs = (interseq_cuda._lib, longpair_cuda._lib, ring_block_cuda._lib, _common.lib,
+            r3_lp_bisect._lib, *cuts)
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        t_k1, t_k3, t_k2, t_pr, t_rs, *t_cuts = pool.map(build, libs)
+    say(f"phase 1 build K1 ({K1_SOURCE}), K3 ({K3_SOURCE}), K2 ({K2_SOURCE}), the probes "
+        f"({PROBES_SOURCE}, {ROWSWEEP_SOURCE}) and K3's {len(cuts)} stage-cut builds, nvcc "
+        f"sm_90a in parallel: ok, K1 {t_k1:.1f} s, K3 {t_k3:.1f} s, K2 {t_k2:.1f} s, probes "
+        f"{t_pr:.1f} s, row sweep {t_rs:.1f} s, stage cuts {max(t_cuts):.1f} s")
 
 
 # -- phase 7 ----------------------------------------------------------------
@@ -889,6 +915,261 @@ def phase11(dev):
         + f"; total {stats.total_tt:.3f} s")
     return launches
 
+# -- phase 12 ----------------------------------------------------------------
+
+
+def timed_pair(kernel, plain):
+    """(kernel ms, plain ms): CUDA events, min of 3 after a warm-up, in turns
+    plain, kernel, kernel, plain."""
+    p1 = cuda_ms(plain, 1)[0]
+    k1 = cuda_ms(kernel)[0]
+    k2 = cuda_ms(kernel)[0]
+    p2 = cuda_ms(plain, 1)[0]
+    return min(k1, k2), min(p1, p2)
+
+
+def rate_bound(ops: float, type_name: str, nbytes: int):
+    """(bound ms, bound_by) at the data sheet's rate for ``type_name``'s
+    elementwise ops, or (None, None) where it has none."""
+    from libssa_tpu_torch.experiments import _common
+
+    rate = _common.DATASHEET.get(type_name)
+    if rate is None:
+        return None, None
+    t_ops, t_bytes = ops / rate, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase12(dev, k3_plain_ms):
+    """The probes of experiments/ on the card: every counterpart at its JAX
+    shape (the counts read right after), each exact variant against its
+    plain version at reduced trips, the rates table and K3's stage cuts."""
+    import torch
+
+    from libssa_tpu_torch.ops import longpair_cuda
+    from libssa_tpu_torch.experiments import _common as C
+    from libssa_tpu_torch.experiments import (
+        op_rate_probe, r2_dtype_probe, r2_ilp_probe, r2_rate_probe, r3_banded_bisect,
+        r3_carry_probe, r3_longpair_probe, r3_lp_bisect, r3_roll_probe)
+
+    mods = (op_rate_probe, r2_rate_probe, r2_ilp_probe, r2_dtype_probe, r3_carry_probe,
+            r3_roll_probe, r3_longpair_probe, r3_banded_bisect, r3_lp_bisect)
+    t0 = time.perf_counter()
+    clock0 = C.sample()
+    # The probes' path: counts from zero, read right after.
+    for mod in mods:
+        mod.launches = 0
+    op_rate = [op_rate_probe.measure(op, ty, dev) for op in op_rate_probe.OPS
+               for ty in op_rate_probe.types_of(op)]
+    lat = [r2_rate_probe.measure(ty, op, r, c, dev) for ty, op, r, c in r2_rate_probe.CASES]
+    thr = [r2_ilp_probe.measure(ty, op, r, c, dev) for ty, op, r, c in r2_ilp_probe.CASES]
+    matrix = {(ty, name): r2_dtype_probe.probe_op(ty, name, dev)[0]
+              for ty in r2_dtype_probe.TYPES for name in r2_dtype_probe.ops_of(ty)}
+    part_b = [r2_dtype_probe.measure_rate(ty, name, dev) for ty in r2_dtype_probe.TYPES
+              for name in r2_dtype_probe.RATE_OPS if matrix[(ty, name)] == "EXACT"]
+    carry = [r3_carry_probe.measure(v, dev) for v in r3_carry_probe.VARIANTS]
+    rolls = [r3_roll_probe.measure(name, dev) for name in r3_roll_probe.PROBES]
+    lp2 = [r3_longpair_probe.measure(name, dev) for name in r3_longpair_probe.PROBES]
+    cuts = {name: r3_banded_bisect.measure(name, dev) for name in r3_banded_bisect.PAIRS}
+    sweep = [r3_lp_bisect.measure(v, dev) for v in r3_lp_bisect.VARIANTS]
+    launches = {mod.__name__.rsplit(".", 1)[1]: mod.launches for mod in mods}
+    clock1 = C.sample()
+    t_path = time.perf_counter() - t0
+    for name, n in launches.items():
+        if n <= 0:
+            fail(12, f"{name}'s kernel was not launched")
+    bad = [k for k, st in matrix.items() if st != "EXACT"]
+    if bad:
+        fail(12, f"r2_dtype part A: not EXACT on the card: {bad}")
+
+    # Each exact variant against its plain version (reduced trips where the
+    # plain loop would be long: stated in each line).
+    err = {}
+    for op in op_rate_probe.OPS:  # 2 trips x 4 reps
+        for ty in op_rate_probe.types_of(op):
+            x = op_rate_probe.tile_input(ty, op_rate_probe.COPIES, dev)
+            got = op_rate_probe.stage(x, op, ty, 4, iters=2)()
+            want = op_rate_probe.plain(x, op, 4, iters=2)
+            if not torch.equal(got, want):
+                fail(12, f"op_rate {op} {ty} differs from the plain version")
+    err["op_rate_probe"] = 0
+    for mod, cases in ((r2_rate_probe, r2_rate_probe.CASES), (r2_ilp_probe, r2_ilp_probe.CASES)):
+        for ty, op, r, c in cases:  # 5 reps
+            a, b = r2_rate_probe.inputs(ty, r, c, dev, seed=3)
+            b = a.flip(0)  # a non-zero b
+            got = mod.stage(a, b, op, ty, 5)()
+            if not torch.equal(got, mod.plain(a, b, op, 5)):
+                fail(12, f"{mod.__name__} {ty} {op} differs from the plain version")
+        err[mod.__name__.rsplit(".", 1)[1]] = 0
+    for ty in r2_dtype_probe.TYPES:  # part B's ops, 3 reps
+        a, b = r2_dtype_probe.inputs_b(ty, dev)
+        for name in r2_dtype_probe.RATE_OPS:
+            if not torch.equal(r2_dtype_probe.stage(name, ty, a, b, 3)(),
+                               r2_dtype_probe.plain(name, a, b, 3)):
+                fail(12, f"r2_dtype part B {ty} {name} differs from the plain version")
+    err["r2_dtype_probe"] = 0
+    x = r3_carry_probe.tile_input(3, dev)
+    for v in r3_carry_probe.VARIANTS:  # 40 trips
+        if not torch.equal(r3_carry_probe.stage(x, v, 40)(), r3_carry_probe.plain(x, v, 40)):
+            fail(12, f"r3_carry {v} differs from the plain version")
+    err["r3_carry_probe"] = 0
+    for mod, probes in ((r3_roll_probe, r3_roll_probe.PROBES),
+                        (r3_longpair_probe, r3_longpair_probe.PROBES)):
+        for name, spec in probes.items():  # 12 applications
+            x = r3_roll_probe.tile_input(spec[1], 4, dev)
+            got = r3_roll_probe.stage(x, spec, 12, None)()
+            if not torch.equal(got, r3_roll_probe.plain(x, spec, 12)):
+                fail(12, f"{mod.__name__} {name} differs from the plain version")
+        err[mod.__name__.rsplit(".", 1)[1]] = 0
+    q, s, mat = (torch.as_tensor(a).to(dev) for a in r3_lp_bisect.pair())
+    sweep_err = 0
+    for v in r3_lp_bisect.VARIANTS:  # 1,024 rows x 4,096 columns
+        got = r3_lp_bisect.stage(q[:1024], s[:4096], mat, 11, 1, v, copies=2)()
+        want = r3_lp_bisect.plain(q[:1024], s[:4096], mat, 11, 1, v)
+        sweep_err = max(sweep_err, int((got.long() - want).abs().max()))
+    k3_16k = int(longpair_cuda.longpair_score_cuda(q, s, mat, 11, 1, True, torch.int32))
+    if sweep_err or sweep[0]["score"] != k3_16k:
+        fail(12, f"row sweep differs: max |diff| {sweep_err}; 16k full "
+                 f"{sweep[0]['score']} vs K3 {k3_16k}")
+    err["r3_lp_bisect"] = 0
+    qb, sb, matb, Qb, Rb = r3_banded_bisect.pair("16k protein", dev)
+    k3_err = 0
+    for v in r3_banded_bisect.CUTS:  # each build terminates; full is exact (3000 x 2000)
+        out = r3_banded_bisect.stage(qb[:3000], sb[:2000], matb, Qb, Rb, v)()
+        torch.cuda.synchronize()
+        if v == "full":
+            k3_err = abs(int(out) - int(r3_banded_bisect.plain(qb[:3000], sb[:2000], matb, Qb,
+                                                               Rb)))
+    if k3_err:
+        fail(12, f"K3 (default build) differs from plain by {k3_err}")
+    err["r3_banded_bisect"] = k3_err
+    say(f"phase 12 probes' path {t_path:.1f} s ({clock0} -> {clock1}: clocks.sm, power.draw, "
+        f"power.limit); launches {launches}; every exact variant equals its plain version "
+        "(op_rate 2 trips x 4 reps; r2_rate, r2_ilp 5 reps; r2_dtype part A once, part B 3 "
+        "reps; r3_carry 40 trips; r3_roll, r3_longpair 12 applications; row sweep 1,024 x "
+        "4,096, and 16,384^2 full = K3's score; K3 default build 3,000 x 2,000; tolerance "
+        "exact); r2_dtype part A: all EXACT")
+    sms = C.sm_count(dev)
+    say("phase 12 rates (one H100; ns a dependent op at one warp an SM; G element-ops/s "
+        "at full occupancy, card and a SM; elem-ops count plain ops: max_add 2, max3 2, "
+        "max3_relu 3, dpmix 5):")
+    thr_by = {(m["type"], m["op"], m["rows"]): m for m in thr}
+    for m in lat:
+        t = thr_by.get((m["type"], m["op"], m["rows"]))
+        tp = (f"{t['gops_card']:9.1f} card {t['gops_card'] / sms:7.2f} a SM" if t
+              else "  (latency only)")
+        say(f"phase 12 rate {m['type']:6s} {m['op']:14s} ({m['rows']},{m['cols']}): latency "
+            f"{m['ns_dependent']:7.3f} ns, {m['gelem_s']:9.1f} G elem/s at one warp an SM; "
+            f"throughput {tp}")
+    for t in thr:
+        if (t["type"], t["op"]) not in {(m["type"], m["op"]) for m in lat}:
+            say(f"phase 12 rate {t['type']:6s} {t['op']:14s} ({t['rows']},{t['cols']}): "
+                f"throughput {t['gops_card']:9.1f} card {t['gops_card'] / sms:7.2f} a SM")
+    for m in op_rate:
+        say(f"phase 12 op_rate {m['op']:9s} {m['type']:6s}: {m['ns_per_op_tile']:8.4f} ns an op "
+            f"a (256, 512) tile, {m['gops_card']:9.1f} G elem/s card, {m['gops_sm']:7.2f} a SM")
+    for m in part_b:
+        say(f"phase 12 r2_dtype B {m['type']:6s} {m['op']:9s}: {m['gelem_s']:9.1f} G elem/s "
+            f"(256, 2048) one tile")
+    for m in rolls + lp2:
+        extra = (f", {m['gops_card']:9.1f} G elem/s card, {m['gops_sm']:7.2f} a SM"
+                 if "gops_card" in m else f" ({m['ms']:.3f} ms / {r3_longpair_probe.ITERS})")
+        say(f"phase 12 roll {m['name']:18s}: {m['ns_op_tile']:8.4f} ns an op a (8, 2048) "
+            f"tile{extra}")
+    for m in carry:
+        say(f"phase 12 carry {m['variant']:10s}: {m['ns_trip']:8.1f} ns a trip, one tile; "
+            f"{m['copies']} tiles {m['ns_trip_card']:8.1f} ns a trip")
+    for m in sweep:
+        say(f"phase 12 row sweep 16k {m['variant']:6s}: one SM {m['ms_one']:8.3f} ms "
+            f"({m['gcups_one']:6.2f} GCUPS), {sms} copies {m['ms_card']:8.3f} ms "
+            f"({m['gcups_card']:7.2f} GCUPS), score {m['score']}"
+            f"{'' if m['variant'] == 'full' else ' [timed only]'}")
+    for name, r in cuts.items():
+        side = r3_banded_bisect.PAIRS[name][0]
+        say(f"phase 12 K3 stage cuts {name} SW (score {r['score']}): " + "; ".join(
+            f"{v} {r[v]:.3f} ms" for v in r3_banded_bisect.CUTS)
+            + f" (production K3 = full, timed first and last; {side}^2 cells)")
+
+    # The kernels line: one representative run per counterpart, kernel and
+    # plain on the same work.
+    entries = []
+
+    def entry(name, mod_name, source, replaces, ms, plain_ms, ops, ty, nbytes):
+        b_ms, b_by = rate_bound(ops, ty, nbytes)
+        entries.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": launches[mod_name], "max_abs_err": err[mod_name],
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None})
+
+    x = op_rate_probe.tile_input("f32", op_rate_probe.COPIES, dev)
+    n_el = x.numel()
+    k, p = timed_pair(op_rate_probe.stage(x, "max", "f32", 8),
+                      lambda: op_rate_probe.plain(x, "max", 8))
+    entry("op_rate tile probe (f32 max, 16 tiles of 256 x 512, 2048 x 8 applications)",
+          "op_rate_probe", PROBES_SOURCE, "experiments/op_rate_probe.py:47", k, p,
+          2 * n_el * op_rate_probe.ITERS * 8, "f32", 8 * n_el)
+    a, b = r2_rate_probe.inputs("i32", 256, 1024, dev)
+    k, p = timed_pair(r2_rate_probe.stage(a, b, "add", "i32", r2_rate_probe.HI),
+                      lambda: r2_rate_probe.plain(a, b, "add", r2_rate_probe.HI))
+    entry("r2_rate chain probe (int32 add, 256 x 1024, 4096 reps, one warp an SM)",
+          "r2_rate_probe", PROBES_SOURCE, "experiments/r2_rate_probe.py:47", k, p,
+          a.numel() * r2_rate_probe.HI, "i32", 12 * a.numel())
+    a, b = r2_ilp_probe.inputs("f32", 256, 1024, dev)
+    k, p = timed_pair(r2_ilp_probe.stage(a, b, "dpmix", "f32", r2_ilp_probe.HI),
+                      lambda: r2_ilp_probe.plain(a, b, "dpmix", r2_ilp_probe.HI))
+    entry("r2_ilp streams probe (f32 dpmix, 256 x 1024, 4 streams, 1024 reps)",
+          "r2_ilp_probe", PROBES_SOURCE, "experiments/r2_ilp_probe.py:55", k, p,
+          5 * 4 * a.numel() * r2_ilp_probe.HI, "f32", 12 * a.numel())
+    a, b = r2_dtype_probe.inputs_b("i32", dev)
+    k, p = timed_pair(r2_dtype_probe.stage("max_roll", "i32", a, b, r2_dtype_probe.HI),
+                      lambda: r2_dtype_probe.plain("max_roll", a, b, r2_dtype_probe.HI))
+    entry("r2_dtype probe (part B int32 max_roll, 256 x 2048, 256 reps; part A's matrix "
+          "on 32 x 256)", "r2_dtype_probe", PROBES_SOURCE,
+          "experiments/r2_dtype_probe.py:75, :82, :108", k, p,
+          a.numel() * r2_dtype_probe.HI, "i32", 12 * a.numel())
+    x = r3_carry_probe.tile_input(1, dev)
+    k, p = timed_pair(r3_carry_probe.stage(x, "single", 512),
+                      lambda: r3_carry_probe.plain(x, "single", 512))
+    entry("r3_carry probe (single, one 8 x 2048 tile, 512 of the 16384 trips)",
+          "r3_carry_probe", PROBES_SOURCE, "experiments/r3_carry_probe.py:103", k, p,
+          24 * x.numel() * 512, "f32", 8 * x.numel())
+    spec = r3_roll_probe.PROBES["roll_lane1+max"]
+    x = r3_roll_probe.tile_input("f32", r3_roll_probe.copies_for(dev), dev)
+    k, p = timed_pair(r3_roll_probe.stage(x, spec, r3_roll_probe.HI, None),
+                      lambda: r3_roll_probe.plain(x, spec, r3_roll_probe.HI))
+    entry(f"r3_roll probe (roll_lane1+max, {x.shape[0]} tiles of 8 x 2048, 16384 "
+          "applications; bound: f32 add and max, shuffles uncounted)", "r3_roll_probe",
+          PROBES_SOURCE, "experiments/r3_roll_probe.py:34", k, p,
+          2 * x.numel() * r3_roll_probe.HI, "f32", 8 * x.numel())
+    spec = r3_longpair_probe.PROBES["roll_lane1"]
+    k, p = timed_pair(r3_roll_probe.stage(x, spec, r3_longpair_probe.ITERS, None),
+                      lambda: r3_roll_probe.plain(x, spec, r3_longpair_probe.ITERS))
+    entry(f"r3_longpair probe 2 (roll_lane1, {x.shape[0]} tiles of 8 x 2048, 512 "
+          "applications; bound: f32 adds, shuffles uncounted)", "r3_longpair_probe",
+          PROBES_SOURCE, "experiments/r3_longpair_probe.py:41", k, p,
+          x.numel() * r3_longpair_probe.ITERS, "f32", 8 * x.numel())
+    bare = cuts["16k protein"]["bare"]
+    cells = 16384 ** 2
+    b_ms, b_by = bound_ms(cells, OPS_SW, 2 * 16384)
+    entries.append({
+        "name": "K3 stage cuts (csrc/longpair.cu with K3_PROBE_* on; bare = all six, 16,384^2 "
+                "SW; timed only)", "route": "cuda", "source": K3_SOURCE,
+        "replaces": "experiments/r3_banded_bisect.py:138, :255",
+        "launches": launches["r3_banded_bisect"], "max_abs_err": err["r3_banded_bisect"],
+        "ms": bare, "plain_ms": k3_plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None})
+    qs, ss = q[:2048], s
+    k, p = timed_pair(r3_lp_bisect.stage(qs, ss, mat, 11, 1, "full"),
+                      lambda: r3_lp_bisect.plain(qs, ss, mat, 11, 1, "full"))
+    b_ms, b_by = bound_ms(2048 * 16384, OPS_SW, 2048 + 16384)
+    entries.append({
+        "name": "row sweep (csrc/lp_rowsweep.cu, full, 2,048 x 16,384 on one SM)",
+        "route": "cuda", "source": ROWSWEEP_SOURCE, "replaces": "experiments/r3_lp_bisect.py:197",
+        "launches": launches["r3_lp_bisect"], "max_abs_err": err["r3_lp_bisect"], "ms": k,
+        "plain_ms": p, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    say(f"phase 12 done in {time.perf_counter() - t0:.1f} s")
+    return entries
+
 
 def bound_ms(cells: int, ops_per_cell: float, nbytes: int) -> tuple[float, str]:
     """The least time for the work, in ms, and what bounds it."""
@@ -922,6 +1203,7 @@ def main() -> int:
     phase9(dev)
     err10, t_k2, t_k2_plain, k2_cells = phase10(dev)
     k2_launches = phase11(dev)
+    probe_entries = phase12(dev, t_k3_plain)
 
     # bound_ms at each timed shape: K1 at bench.py's kernel shape (subject
     # codes in, one score and range out per subject), K3 at 8a SW (codes in),
@@ -966,7 +1248,7 @@ def main() -> int:
         "bound_ms": b_k2[0],
         "bound_by": b_k2[1],
         "library_ms": None,
-    }]}))
+    }, *probe_entries]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -49,6 +49,24 @@
 // compiler builds it too (k3_longpair_host below runs the stripes one
 // after another, the 32 lanes in lock-step as a warp runs them), and the
 // recurrence, boundaries and skew can be tested on a machine without a GPU.
+//
+// Stage switches for timing probes (libssa_tpu_torch/experiments/
+// r3_banded_bisect.py, the counterpart of experiments/r3_banded_bisect.py).
+// All are off by default, and the default build is the production K3. A
+// build with any of them on gives wrong scores and is timed only:
+//   K3_PROBE_NO_WAIT     no poll on the stripe above;
+//   K3_PROBE_NO_PUBLISH  the above, and no fence or progress release store;
+//   K3_PROBE_NO_EDGE     the above, and no stripe-edge stores (outH, outF);
+//   K3_PROBE_NO_PROFILE  a constant substitution row, no shared-memory read;
+//   K3_PROBE_NO_SHUFFLE  no boundary shuffles: a lane takes its own values;
+//   K3_PROBE_STEADY      no column guard and no first-stripe branch (stores
+//                        stay guarded, so nothing writes out of bounds).
+#if defined(K3_PROBE_NO_EDGE) && !defined(K3_PROBE_NO_PUBLISH)
+#define K3_PROBE_NO_PUBLISH
+#endif
+#if defined(K3_PROBE_NO_PUBLISH) && !defined(K3_PROBE_NO_WAIT)
+#define K3_PROBE_NO_WAIT
+#endif
 #include <stddef.h>
 #include <stdint.h>
 
@@ -116,7 +134,11 @@ K3_HD T lane_column(Lane<T, CH>& L, const int32_t* pc, int stride, T htop, T f,
 #pragma unroll
   for (int s = 0; s < CH; ++s) {
     const T e = mx(L.E[s] - R, L.H[s] - Q);
+#ifdef K3_PROBE_NO_PROFILE
+    T h = mx(mx(diag + (T)(s - 2), e), f);  // a constant substitution row
+#else
     T h = mx(mx(diag + (T)pc[s * stride], e), f);
+#endif
     if (LOCAL) h = mx(h, (T)0);
     diag = L.H[s];
     L.H[s] = h;
@@ -191,11 +213,17 @@ __global__ void __launch_bounds__(WARP) longpair_kernel(Args a) {
   for (int t = 0; t < steps; ++t) {
     const int j = t - lane;
     // Column j's top boundary and code, from lane-1's step t-1.
+#ifdef K3_PROBE_NO_SHUFFLE
+    T htop = hb, f = fb;
+    int c = code;
+#else
     T htop = __shfl_up_sync(FULL, hb, 1);
     T f = __shfl_up_sync(FULL, fb, 1);
     int c = __shfl_up_sync(FULL, code, 1);
+#endif
     if (t % CHUNK == 0 && t < n) {  // warp-uniform: the next chunk
       const int col = t + lane;
+#ifndef K3_PROBE_NO_WAIT
       if (!first) {
         const int need = min(t + CHUNK, n);
         const long long t0 = clock64();
@@ -207,6 +235,7 @@ __global__ void __launch_bounds__(WARP) longpair_kernel(Args a) {
           if (clock64() - t0 > WAIT_LIMIT_CYCLES) __trap();
         }
       }
+#endif
       if (col < n) {
         chS = a.s[col];
         if (!first) {
@@ -218,13 +247,16 @@ __global__ void __launch_bounds__(WARP) longpair_kernel(Args a) {
     }
     const int src = t % CHUNK;
     const int c0 = __shfl_sync(FULL, chS, src);
+#ifndef K3_PROBE_STEADY
     if (first) {
       if (lane == 0) {
         htop = LOCAL ? (T)0 : -(Q + (T)t * R);  // H[0][t+1]
         f = htop - Q;                           // F[1][t+1]
         c = c0;
       }
-    } else {
+    } else
+#endif
+    {
       const T h0 = __shfl_sync(FULL, chH, src);
       const T f0 = __shfl_sync(FULL, chF, src);
       if (lane == 0) {
@@ -233,20 +265,27 @@ __global__ void __launch_bounds__(WARP) longpair_kernel(Args a) {
         c = c0;
       }
     }
-    if (j >= 0 && j < n) {
+#ifndef K3_PROBE_STEADY
+    if (j >= 0 && j < n)
+#endif
+    {
       fb = lane_column<T, CH, LOCAL>(L, prof + c * WARP + lane, ALPHA * WARP,
                                      htop, f, a.m, Q, R);
       hb = L.H[CH - 1];
       code = c;
       if (!LOCAL && j == n - 1) lane_capture<T, CH>(L, a.m, (T*)a.result);
-      if (feed && lane == WARP - 1) {
+#ifndef K3_PROBE_NO_EDGE
+      if (feed && lane == WARP - 1 && j >= 0 && j < n) {
         outH[j] = hb;
         outF[j] = fb;
+#ifndef K3_PROBE_NO_PUBLISH
         if ((j + 1) % CHUNK == 0 || j == n - 1) {
           __threadfence();
           st_release(a.progress + k, j + 1);
         }
+#endif
       }
+#endif
     }
   }
   if (LOCAL) {

@@ -23,10 +23,12 @@ launches = 0  # K3 launches made by this process; set to 0 to start a count
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
+def _lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """K3's library; ``defines`` switch on the stage cuts of a timing probe
+    (``csrc/longpair.cu``'s header), and the default is the production K3."""
     from ..util import cudabuild
 
-    lib = cudabuild.load(SOURCE)
+    lib = cudabuild.load(SOURCE, defines)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.k3_longpair.argtypes = [p, ll, p, i, p, ll, ll, i, i, i, i, p, p, p, p, p, p]
     lib.k3_longpair.restype = i
@@ -62,11 +64,29 @@ def longpair_score_cuda(
     None picks it by ``band_rows``. The result stays on the device.
     """
     global launches
-    dev = s.device
-    if dev.type == "cpu":
+    if s.device.type == "cpu":
         return longpair.longpair_score_plain(
             q, s, matrix_padded, Q, R, local=local, dtype=dtype
         )
+    result = enqueue(_lib(), q, s, matrix_padded, Q, R, local, dtype, rows_per_thread)
+    launches += 1
+    return result
+
+
+def enqueue(
+    lib: ctypes.CDLL,
+    q: torch.Tensor,
+    s: torch.Tensor,
+    matrix_padded: torch.Tensor,
+    Q: int,
+    R: int,
+    local: bool,
+    dtype: torch.dtype,
+    rows_per_thread: int | None,
+) -> torch.Tensor:
+    """Check the CUDA inputs and launch ``lib``'s K3 once (no count):
+    ``longpair_score_cuda``'s launch, shared with the stage-cut probes."""
+    dev = s.device
     if dev.type != "cuda":
         raise ValueError(f"K3 takes CUDA or CPU tensors, got {dev}")
     if dtype not in (torch.int32, torch.int64):
@@ -92,7 +112,6 @@ def longpair_score_cuda(
     stripes = -(-m // (WARP * rows_per_thread))
     if stripes >= 2**31:
         raise ValueError(f"query too long for K3 ({m})")
-    lib = _lib()
     bufs = torch.empty((2, lib.k3_ring_slots(), n), dtype=dtype, device=dev)
     counters = torch.zeros(stripes + 1, dtype=torch.int32, device=dev)  # ticket, progress
     result = torch.zeros(1, dtype=dtype, device=dev)
@@ -106,5 +125,4 @@ def longpair_score_cuda(
         )
     if rc != 0:
         raise RuntimeError(f"K3 launch failed: CUDA error {rc}")
-    launches += 1
     return result[0]

@@ -82,9 +82,14 @@ def _build(source: str, compiler: str, flags, host: str = "") -> Path:
 
 
 @functools.cache
-def load(source: str) -> ctypes.CDLL:
-    """Build the kernel source ``csrc/<source>`` with nvcc if needed and load it."""
-    return ctypes.CDLL(str(_build(source, nvcc_path(), NVCC_FLAGS)))
+def load(source: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build the kernel source ``csrc/<source>`` with nvcc if needed and load it.
+
+    ``defines`` are preprocessor macros (``"NAME"`` or ``"NAME=VALUE"``),
+    passed as ``-D`` flags: each set builds its own library.
+    """
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    return ctypes.CDLL(str(_build(source, nvcc_path(), flags)))
 
 
 def _native_target(cxx: str) -> str:

@@ -1,5 +1,5 @@
-"""K1, K3, K2, the search engine and the linear-space traceback on an
-NVIDIA GPU, against the plain version and the CPU.
+"""K1, K3, K2, the search engine, the linear-space traceback and the
+probes' kernels on an NVIDIA GPU, against the plain version and the CPU.
 
 Every test here needs a card: it is marked ``cuda`` and skips without one.
 The file imports neither JAX nor the JAX package, so it also runs where
@@ -8,7 +8,8 @@ they are not installed; on a machine with a card:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 (``tests/conftest.py`` configures JAX for the rest of the suite.)
-Tolerance: exact equality, since every value is an integer.
+Tolerance: exact equality: the DP values are integers, and the probes'
+f32 and bf16 ops round exactly as their plain versions do.
 """
 import numpy as np
 import pytest
@@ -288,3 +289,92 @@ def test_device_pair_on_card_equals_cpu(dev, local, monkeypatch):
     assert st.aligner_levels > 0
     assert (got.score, got.q_begin, got.s_begin, got.cigar) == (
         want.score, want.q_begin, want.s_begin, want.cigar)
+
+
+# -- the probes (libssa_tpu_torch/experiments/) ------------------------------------
+
+
+@pytest.mark.parametrize("type_name", ["f32", "bf16x2", "i32", "i16x2", "i8x4", "u8x4"])
+def test_probe_chain_matches_plain(dev, type_name):
+    """chain_kernel, one and four accumulators, every op of r2_dtype's part A
+    and the rate probes' DPX ops, against the plain version."""
+    from libssa_tpu_torch.experiments import _common as C
+    from libssa_tpu_torch.experiments import r2_dtype_probe, r2_ilp_probe
+
+    a, b = r2_dtype_probe.inputs_a(type_name, dev)
+    for name in r2_dtype_probe.ops_of(type_name):
+        if r2_dtype_probe.OPS.get(name, ("", 0))[1]:
+            continue  # the rolls: test_probe_tile_matches_plain
+        got = r2_dtype_probe.stage(name, type_name, a, b, 3)()
+        assert torch.equal(got, r2_dtype_probe.plain(name, a, b, 3)), name
+    for ty, op, _, _ in r2_ilp_probe.CASES:
+        if ty == type_name:
+            got = C.stage_chain(op, ty, a, b, 4, 4, c1=1, c2=3)()
+            assert torch.equal(got, C.plain_chain(op, a, b, 4, 4, c1=1, c2=3)), op
+
+
+def test_probe_tile_matches_plain(dev):
+    """tile_kernel at every instantiated layout: op_rate's, r2_dtype's rolls,
+    r3_roll's and r3_longpair's."""
+    from libssa_tpu_torch.experiments import (
+        op_rate_probe, r2_dtype_probe, r3_longpair_probe, r3_roll_probe)
+
+    for op in op_rate_probe.OPS:
+        for ty in op_rate_probe.types_of(op):
+            x = op_rate_probe.tile_input(ty, 2, dev)
+            got = op_rate_probe.stage(x, op, ty, 4, iters=2)()
+            assert torch.equal(got, op_rate_probe.plain(x, op, 4, iters=2)), (op, ty)
+    for ty in r2_dtype_probe.TYPES:
+        a, b = r2_dtype_probe.inputs_a(ty, dev)
+        for name in ("roll1", "roll2", "max_roll"):
+            got = r2_dtype_probe.stage(name, ty, a, b, 5)()
+            assert torch.equal(got, r2_dtype_probe.plain(name, a, b, 5)), (name, ty)
+        a, b = r2_dtype_probe.inputs_b(ty, dev)
+        got = r2_dtype_probe.stage("max_roll", ty, a, b, 3)()
+        assert torch.equal(got, r2_dtype_probe.plain("max_roll", a, b, 3)), ty
+    for spec in [*r3_roll_probe.PROBES.values(), *r3_longpair_probe.PROBES.values()]:
+        x = r3_roll_probe.tile_input(spec[1], 2, dev)
+        got = r3_roll_probe.stage(x, spec, 9, None)()
+        assert torch.equal(got, r3_roll_probe.plain(x, spec, 9)), spec
+
+
+@pytest.mark.parametrize("variant", ["single", "tuple3", "with1b", "slice78", "subroll",
+                                     "laneroll1b", "iota_t"])
+def test_probe_carry_matches_plain(dev, variant):
+    from libssa_tpu_torch.experiments import r3_carry_probe
+
+    x = r3_carry_probe.tile_input(2, dev)
+    before = r3_carry_probe.launches
+    got = r3_carry_probe.stage(x, variant, 2100)()
+    assert r3_carry_probe.launches == before + 1
+    assert torch.equal(got, r3_carry_probe.plain(x, variant, 2100))
+
+
+@pytest.mark.parametrize("variant", ["full", "noscan", "empty"])
+def test_row_sweep_matches_plain(dev, variant):
+    """Every column width with an instantiation; full equals K3's score."""
+    from libssa_tpu_torch.experiments import r3_lp_bisect
+
+    q, s, mat = (torch.as_tensor(a).to(dev) for a in r3_lp_bisect.pair(16384))
+    for n in r3_lp_bisect.WIDTHS:
+        m = min(n, 700)
+        got = r3_lp_bisect.stage(q[:m], s[:n], mat, 11, 1, variant, copies=3)()
+        want = r3_lp_bisect.plain(q[:m], s[:n], mat, 11, 1, variant)
+        assert got.tolist() == [want] * 3, n
+        if variant == "full":
+            k3 = longpair_cuda.longpair_score_cuda(q[:m], s[:n], mat, 11, 1)
+            assert int(k3) == want
+
+
+def test_k3_stage_cuts_build_and_terminate(dev):
+    """Each stage-cut build runs to its end without a fault; the default
+    (``full``) is the production K3 and equals the plain version."""
+    from libssa_tpu_torch.experiments import r3_banded_bisect
+
+    q, s, mat, Q, R = r3_banded_bisect.pair("16k protein", dev)
+    q, s = q[:2500], s[:1900]
+    for v in r3_banded_bisect.CUTS:
+        out = r3_banded_bisect.stage(q, s, mat, Q, R, v)()
+        torch.cuda.synchronize()
+        if v == "full":
+            assert int(out) == int(r3_banded_bisect.plain(q, s, mat, Q, R))

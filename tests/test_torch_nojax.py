@@ -108,6 +108,22 @@ print(json.dumps({{"hits": [[h.score, h.cigar] for h in hits] * 2}}))
 """
 
 
+_PROBES = """
+import json
+import torch
+torch.set_num_threads(1)
+from libssa_tpu_torch.experiments import op_rate_probe, r2_ilp_probe, r3_lp_bisect
+
+q, s, mat = (torch.as_tensor(a) for a in r3_lp_bisect.pair(1024))
+sw = r3_lp_bisect.plain(q[:300], s, mat, 11, 1, "full")
+x = op_rate_probe.tile_input("bf16x2", 1, "cpu")[:, :16, :64]
+tile = op_rate_probe.plain(x, "scanpass", 4, iters=2)
+a, b = r2_ilp_probe.inputs("i16x2", 8, 64, "cpu")
+chain = r2_ilp_probe.plain(a, b + 1, "dpmix_dpx", 5)
+print(json.dumps({{"hits": [sw, float(tile.max()), int(chain.max())]}}))
+"""
+
+
 def _run(body: str, tmp_path) -> subprocess.CompletedProcess:
     db = tmp_path / "proteins.fas"  # a private copy: packed-DB caches never race
     query = tmp_path / "query_prot.fas"
@@ -122,12 +138,14 @@ def _run(body: str, tmp_path) -> subprocess.CompletedProcess:
     )
 
 
-@pytest.mark.parametrize("entry", ["api", "cli", "score", "traceback"])
+@pytest.mark.parametrize("entry", ["api", "cli", "score", "traceback", "probes"])
 def test_port_runs_without_jax(tmp_path, entry):
     """Search (API, CLI), the 1-vs-1 score path (align_pair SCORE,
-    ``pair --score-only``, pair_scores_batch) and the linear-space
-    traceback (ALIGNMENT-mode align_pair above MATRIX_CELL_LIMIT)."""
-    bodies = {"api": _API, "cli": _CLI, "score": _SCORE, "traceback": _TRACEBACK}
+    ``pair --score-only``, pair_scores_batch), the linear-space traceback
+    (ALIGNMENT-mode align_pair above MATRIX_CELL_LIMIT) and the probes'
+    plain versions."""
+    bodies = {"api": _API, "cli": _CLI, "score": _SCORE, "traceback": _TRACEBACK,
+              "probes": _PROBES}
     proc = _run(bodies[entry], tmp_path)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
