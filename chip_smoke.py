@@ -87,27 +87,27 @@ PROBES_SOURCE = "libssa_tpu_torch/csrc/probes.cu"
 ROWSWEEP_SOURCE = "libssa_tpu_torch/csrc/lp_rowsweep.cu"
 TRACE_PAIR = 100_000  # phase 11b: m = n, the reference's largest traceback demo
 # The least time for a kernel's work (the kernels line's bound_ms): the
-# larger of bytes over HBM's rate and integer operations over the int32
-# rate. One H100 SXM: 3.35 TB/s; 67 TFLOP/s float32 is 128 FP32 lanes an SM
-# at two flops a fused multiply-add, and the data sheet's int32 rate is half
-# that, 67e12 / 4 operations a second. Phase 12 measures int32 add and max
-# above it (21.5-21.8e12 a second, r2_ilp_probe at full occupancy; PERF.md
-# §6), so the bound keeps the data sheet's rate as its denominator.
+# larger of bytes over HBM's rate and operations over the card's rate for
+# their type. One H100 SXM at 700 W: 3.35 TB/s; float32 at 67e12 / 2 a
+# second (128 FP32 lanes an SM; 67e12 counts a fused multiply-add as two).
+# The data sheet's int32 rate (half as many INT32 lanes, 16.75e12) is no
+# ceiling: phase 12 measures int32 add and max at 22.1-22.4e12 a second
+# (25.6e12 at most), as nvcc issues half the adds as IMAD.IADD on
+# the FMA pipe, and a DPX instruction (__viaddmax_s32, __vimax3_s32, its
+# _relu form) at 13.1-13.4e12 (r2_ilp_probe at full occupancy; PERF.md §6).
+# The bound takes the highest reading for each type, rounded up; phase 12
+# prints each run's beside it.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 4
+OPS_PER_S = {"f32": 67e12 / 2, "i32": 25.6e12, "dpx": 13.5e12}
 # The fewest int32 instructions a DP cell of Gotoh's recurrence needs on
 # Hopper: h = __vimax3_s32(diag + s, e, f) is an add and a DPX max3 (SW's
 # floor at 0 rides in __vimax3_s32_relu); t = h - Q is shared by both gaps;
 # e' = __viaddmax_s32(e, -R, t) and f' likewise: 2 adds and 3 DPX for NW.
 # SW's running max of H folds two cells into one __vimax3_s32: 3.5 DPX.
-# K1's track_range adds the running min the same way: 0.5 DPX. Phase 12
-# measures a DPX instruction (__viaddmax_s32, __vimax3_s32, its _relu form)
-# issuing at 13.2e12 a second at full occupancy, below the int32 rate
-# (r2_ilp_probe's max_add_dpx, max3_dpx, max3_relu_dpx; PERF.md §6), so
-# one counts DPX_COST operations, its measured cost.
-DPX_PER_S = 13.2e12
-DPX_COST = INT32_OPS_PER_S / DPX_PER_S  # 1.27
-OPS_NW, OPS_SW, OPS_TRACK = 2 + 3 * DPX_COST, 2 + 3.5 * DPX_COST, 0.5 * DPX_COST
+# K1's track_range adds the running min the same way: 0.5 DPX more. The
+# adds can issue on the FMA pipe beside the DPX, so a cell takes at least
+# the larger of the two counts over their rates: the DPX's.
+CELL_NW, CELL_SW, CELL_SW_TRACK = (2, 3), (2, 3.5), (2, 4)  # (int32 adds, DPX)
 PAIR_PROTEIN = 16_384  # phase 8a: m = n, the shape libssa_tpu/api.py names
 PAIR_GENOME = 100_000  # phase 8b: m = n, 10**10 cells a strand
 BATCH_M, BATCH_P = 512, 2048  # phase 9: BASELINE config 1's batched half
@@ -426,14 +426,16 @@ def build_kernels():
 
     cuts = [functools.partial(longpair_cuda._lib, r3_banded_bisect.CUTS[v])
             for v in r3_banded_bisect.CUTS if v != "full"]
-    libs = (interseq_cuda._lib, longpair_cuda._lib, ring_block_cuda._lib, _common.lib,
+    libs = (interseq_cuda._lib, longpair_cuda._lib, ring_block_cuda._lib,
+            functools.partial(_common.lib, "chain"), functools.partial(_common.lib, "tile"),
             r3_lp_bisect._lib, *cuts)
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
-        t_k1, t_k3, t_k2, t_pr, t_rs, *t_cuts = pool.map(build, libs)
+        t_k1, t_k3, t_k2, t_chain, t_tile, t_rs, *t_cuts = pool.map(build, libs)
     say(f"phase 1 build K1 ({K1_SOURCE}), K3 ({K3_SOURCE}), K2 ({K2_SOURCE}), the probes "
-        f"({PROBES_SOURCE}, {ROWSWEEP_SOURCE}) and K3's {len(cuts)} stage-cut builds, nvcc "
-        f"sm_90a in parallel: ok, K1 {t_k1:.1f} s, K3 {t_k3:.1f} s, K2 {t_k2:.1f} s, probes "
-        f"{t_pr:.1f} s, row sweep {t_rs:.1f} s, stage cuts {max(t_cuts):.1f} s")
+        f"({PROBES_SOURCE} in two builds, {ROWSWEEP_SOURCE}) and K3's {len(cuts)} stage-cut "
+        f"builds, nvcc sm_90a in parallel: ok, K1 {t_k1:.1f} s, K3 {t_k3:.1f} s, K2 "
+        f"{t_k2:.1f} s, probes {t_chain:.1f} s (chain) and {t_tile:.1f} s (tile), row sweep "
+        f"{t_rs:.1f} s, stage cuts {max(t_cuts):.1f} s")
 
 
 # -- phase 7 ----------------------------------------------------------------
@@ -919,28 +921,19 @@ def phase11(dev):
 
 
 def timed_pair(kernel, plain):
-    """(kernel ms, plain ms): CUDA events, min of 3 after a warm-up, in turns
-    plain, kernel, kernel, plain."""
-    p1 = cuda_ms(plain, 1)[0]
-    k1 = cuda_ms(kernel)[0]
-    k2 = cuda_ms(kernel)[0]
-    p2 = cuda_ms(plain, 1)[0]
-    return min(k1, k2), min(p1, p2)
+    """(kernel ms, plain ms) on CUDA events, each after a warm-up: the
+    kernel's the min of 3, the plain version's one timing."""
+    return cuda_ms(kernel)[0], cuda_ms(plain, 1)[0]
 
 
 def rate_bound(ops: float, type_name: str, nbytes: int):
-    """(bound ms, bound_by) at the data sheet's rate for ``type_name``'s
-    elementwise ops, or (None, None) where it has none."""
-    from libssa_tpu_torch.experiments import _common
-
-    rate = _common.DATASHEET.get(type_name)
-    if rate is None:
-        return None, None
-    t_ops, t_bytes = ops / rate, nbytes / HBM_BYTES_PER_S
+    """(bound ms, bound_by) for ``ops`` elementwise ops of ``type_name`` at
+    its rate in ``OPS_PER_S``."""
+    t_ops, t_bytes = ops / OPS_PER_S[type_name], nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase12(dev, k3_plain_ms):
+def phase12(dev):
     """The probes of experiments/ on the card: every counterpart at its JAX
     shape (the counts read right after), each exact variant against its
     plain version at reduced trips, the rates table and K3's stage cuts."""
@@ -1042,7 +1035,6 @@ def phase12(dev, k3_plain_ms):
                                                                Rb)))
     if k3_err:
         fail(12, f"K3 (default build) differs from plain by {k3_err}")
-    err["r3_banded_bisect"] = k3_err
     say(f"phase 12 probes' path {t_path:.1f} s ({clock0} -> {clock1}: clocks.sm, power.draw, "
         f"power.limit); launches {launches}; every exact variant equals its plain version "
         "(op_rate 2 trips x 4 reps; r2_rate, r2_ilp 5 reps; r2_dtype part A once, part B 3 "
@@ -1065,6 +1057,12 @@ def phase12(dev, k3_plain_ms):
         if (t["type"], t["op"]) not in {(m["type"], m["op"]) for m in lat}:
             say(f"phase 12 rate {t['type']:6s} {t['op']:14s} ({t['rows']},{t['cols']}): "
                 f"throughput {t['gops_card']:9.1f} card {t['gops_card'] / sms:7.2f} a SM")
+    # The bound's rates against this run's: one instruction an application.
+    for key, ops in (("i32", ("add", "max")), ("dpx", ("max_add_dpx", "max3_dpx", "max3_relu_dpx"))):
+        got = max(t["gapps_card"] for t in thr if t["type"] == "i32" and t["op"] in ops)
+        note = "" if got * 1e9 <= OPS_PER_S[key] else " (above it: raise OPS_PER_S)"
+        say(f"phase 12 bound rate {key}: measured {got:.1f} G instructions/s, the bound "
+            f"takes {OPS_PER_S[key] / 1e9:.1f}{note}")
     for m in op_rate:
         say(f"phase 12 op_rate {m['op']:9s} {m['type']:6s}: {m['ns_per_op_tile']:8.4f} ns an op "
             f"a (256, 512) tile, {m['gops_card']:9.1f} G elem/s card, {m['gops_sm']:7.2f} a SM")
@@ -1128,19 +1126,19 @@ def phase12(dev, k3_plain_ms):
           "experiments/r2_dtype_probe.py:75, :82, :108", k, p,
           a.numel() * r2_dtype_probe.HI, "i32", 12 * a.numel())
     x = r3_carry_probe.tile_input(1, dev)
-    k, p = timed_pair(r3_carry_probe.stage(x, "single", 512),
-                      lambda: r3_carry_probe.plain(x, "single", 512))
-    entry("r3_carry probe (single, one 8 x 2048 tile, 512 of the 16384 trips)",
+    k, p = timed_pair(r3_carry_probe.stage(x, "single", 256),
+                      lambda: r3_carry_probe.plain(x, "single", 256))
+    entry("r3_carry probe (single, one 8 x 2048 tile, 256 of the 16384 trips)",
           "r3_carry_probe", PROBES_SOURCE, "experiments/r3_carry_probe.py:103", k, p,
-          24 * x.numel() * 512, "f32", 8 * x.numel())
+          24 * x.numel() * 256, "f32", 8 * x.numel())
     spec = r3_roll_probe.PROBES["roll_lane1+max"]
     x = r3_roll_probe.tile_input("f32", r3_roll_probe.copies_for(dev), dev)
-    k, p = timed_pair(r3_roll_probe.stage(x, spec, r3_roll_probe.HI, None),
-                      lambda: r3_roll_probe.plain(x, spec, r3_roll_probe.HI))
-    entry(f"r3_roll probe (roll_lane1+max, {x.shape[0]} tiles of 8 x 2048, 16384 "
+    k, p = timed_pair(r3_roll_probe.stage(x, spec, r3_roll_probe.LO, None),
+                      lambda: r3_roll_probe.plain(x, spec, r3_roll_probe.LO))
+    entry(f"r3_roll probe (roll_lane1+max, {x.shape[0]} tiles of 8 x 2048, 1024 "
           "applications; bound: f32 add and max, shuffles uncounted)", "r3_roll_probe",
           PROBES_SOURCE, "experiments/r3_roll_probe.py:34", k, p,
-          2 * x.numel() * r3_roll_probe.HI, "f32", 8 * x.numel())
+          2 * x.numel() * r3_roll_probe.LO, "f32", 8 * x.numel())
     spec = r3_longpair_probe.PROBES["roll_lane1"]
     k, p = timed_pair(r3_roll_probe.stage(x, spec, r3_longpair_probe.ITERS, None),
                       lambda: r3_roll_probe.plain(x, spec, r3_longpair_probe.ITERS))
@@ -1148,20 +1146,20 @@ def phase12(dev, k3_plain_ms):
           "applications; bound: f32 adds, shuffles uncounted)", "r3_longpair_probe",
           PROBES_SOURCE, "experiments/r3_longpair_probe.py:41", k, p,
           x.numel() * r3_longpair_probe.ITERS, "f32", 8 * x.numel())
-    bare = cuts["16k protein"]["bare"]
-    cells = 16384 ** 2
-    b_ms, b_by = bound_ms(cells, OPS_SW, 2 * 16384)
+    # bare's score is wrong by design: it has no plain version and no error,
+    # so both are null (the default build, K3 itself, is checked above).
+    b_ms, b_by = bound_ms(16384 ** 2, CELL_SW, 2 * 16384)
     entries.append({
         "name": "K3 stage cuts (csrc/longpair.cu with K3_PROBE_* on; bare = all six, 16,384^2 "
-                "SW; timed only)", "route": "cuda", "source": K3_SOURCE,
+                "SW; timed only, no plain version)", "route": "cuda", "source": K3_SOURCE,
         "replaces": "experiments/r3_banded_bisect.py:138, :255",
-        "launches": launches["r3_banded_bisect"], "max_abs_err": err["r3_banded_bisect"],
-        "ms": bare, "plain_ms": k3_plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "launches": launches["r3_banded_bisect"], "max_abs_err": None,
+        "ms": cuts["16k protein"]["bare"], "plain_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None})
     qs, ss = q[:2048], s
     k, p = timed_pair(r3_lp_bisect.stage(qs, ss, mat, 11, 1, "full"),
                       lambda: r3_lp_bisect.plain(qs, ss, mat, 11, 1, "full"))
-    b_ms, b_by = bound_ms(2048 * 16384, OPS_SW, 2048 + 16384)
+    b_ms, b_by = bound_ms(2048 * 16384, CELL_SW, 2048 + 16384)
     entries.append({
         "name": "row sweep (csrc/lp_rowsweep.cu, full, 2,048 x 16,384 on one SM)",
         "route": "cuda", "source": ROWSWEEP_SOURCE, "replaces": "experiments/r3_lp_bisect.py:197",
@@ -1171,12 +1169,13 @@ def phase12(dev, k3_plain_ms):
     return entries
 
 
-def bound_ms(cells: int, ops_per_cell: float, nbytes: int) -> tuple[float, str]:
-    """The least time for the work, in ms, and what bounds it."""
-    t_ops = cells * ops_per_cell / INT32_OPS_PER_S
+def bound_ms(cells: int, cell: tuple[float, float], nbytes: int) -> tuple[float, str]:
+    """The least time for ``cells`` DP cells of ``cell`` = (int32 adds, DPX)
+    each, in ms, and what bounds it."""
+    adds, dpx = cell
+    t_ops = cells * max(adds / OPS_PER_S["i32"], dpx / OPS_PER_S["dpx"])
     t_bytes = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
 
 
 def main() -> int:
@@ -1203,15 +1202,15 @@ def main() -> int:
     phase9(dev)
     err10, t_k2, t_k2_plain, k2_cells = phase10(dev)
     k2_launches = phase11(dev)
-    probe_entries = phase12(dev, t_k3_plain)
+    probe_entries = phase12(dev)
 
     # bound_ms at each timed shape: K1 at bench.py's kernel shape (subject
     # codes in, one score and range out per subject), K3 at 8a SW (codes in),
     # K2 at 11a's first level (codes, boundaries and outputs: 4 words a row
     # and a column, int32).
-    b_k1 = bound_ms(256 * 8192 * 512, OPS_SW + OPS_TRACK, 8192 * 512 + 8192 * 12)
-    b_k3 = bound_ms(PAIR_PROTEIN ** 2, OPS_SW, 2 * PAIR_PROTEIN)
-    b_k2 = bound_ms(k2_cells, OPS_NW, 4 * PAIR_PROTEIN * 17)
+    b_k1 = bound_ms(256 * 8192 * 512, CELL_SW_TRACK, 8192 * 512 + 8192 * 12)
+    b_k3 = bound_ms(PAIR_PROTEIN ** 2, CELL_SW, 2 * PAIR_PROTEIN)
+    b_k2 = bound_ms(k2_cells, CELL_NW, 4 * PAIR_PROTEIN * 17)
     say(json.dumps({"kernels": [{
         "name": "K1 interseq (inter-sequence SW/NW scoring)",
         "route": "cuda",

@@ -36,6 +36,15 @@
 // host functions of their documented semantics: probe_chain_host runs
 // chain_kernel's arithmetic there, so the CPU tests can hold it against the
 // plain version.
+//
+// nvcc builds two libraries from this file, in parallel: -DPROBES_CHAIN
+// holds probe_chain and its kernels, -DPROBES_TILE probe_tile and
+// probe_carry and theirs (the whole file takes twice as long to compile).
+// With neither macro, one library holds all three.
+#if !defined(PROBES_CHAIN) && !defined(PROBES_TILE)
+#define PROBES_CHAIN
+#define PROBES_TILE
+#endif
 #include <stdint.h>
 #include <string.h>
 
@@ -525,6 +534,7 @@ static void launch_tile(int blocks, int threads, cudaStream_t st, const void* x,
 struct ChainEntry { int ty, op, ns; Launcher fn; };
 struct TileEntry { int ty, g, r, d, op; Launcher fn; };
 
+#ifdef PROBES_CHAIN
 #define CH1(TY, OP) {TY, OP, 1, launch_chain<TY, OP, 1>}, {TY, OP, 4, launch_chain<TY, OP, 4>}
 // r2_dtype's ops, every type; the rate probes' ops, the types they run in.
 #define CH_DTYPE(TY) CH1(TY, ADD), CH1(TY, SUB), CH1(TY, MAX), CH1(TY, WHERE_GT), CH1(TY, SATADD)
@@ -539,7 +549,9 @@ static const ChainEntry CHAINS[] = {
     // r3_roll_probe's and r3_longpair_probe's elementwise bodies
     CH1(F32, ADDC), CH1(F32, MAXC), CH1(F32, MAX3MUL), CH1(I32, MAX3ADD), CH1(I32, MAX3ADD_DPX),
 };
+#endif  // PROBES_CHAIN
 
+#ifdef PROBES_TILE
 #define TL(TY, G, R, D, OP) {TY, G, R, D, OP, launch_tile<TY, G, R, D, OP>}
 #define TL_ROW4(TY) TL(TY, 8, 32, 1, ROLL), TL(TY, 16, 32, 1, ROLL), TL(TY, 8, 32, 1, MAX_ROLL_ADDC)
 #define TL_DTYPE(TY) TL(TY, 1, 32, 1, ROLL_ADDB), TL(TY, 1, 32, 2, ROLL_ADDB), \
@@ -566,6 +578,7 @@ template <int V>
 static void launch_carry(int copies, cudaStream_t st, const float* x, float* out, int trips) {
   carry_kernel<V><<<copies, 1024, 0, st>>>(x, out, trips);
 }
+#endif  // PROBES_TILE
 #endif  // __CUDACC__
 
 // The host build's chain: chain_kernel's arithmetic, one word at a time.
@@ -610,6 +623,7 @@ static const HostEntry HOSTS[] = {
 extern "C" {
 
 #ifdef __CUDACC__
+#ifdef PROBES_CHAIN
 // chain_kernel<ty, op, ns> over n words, `reps` applications each, on
 // `blocks` x `threads`. Returns cudaGetLastError(), or -1 for a (ty, op, ns)
 // without an instantiation.
@@ -622,7 +636,9 @@ int probe_chain(int ty, int op, int ns, const void* x, const void* b, void* out,
     }
   return -1;
 }
+#endif  // PROBES_CHAIN
 
+#ifdef PROBES_TILE
 // tile_kernel<ty, g, r, d, op> over `lines` lines of g * r words, `apps`
 // applications. Returns cudaGetLastError(), or -1 without an instantiation.
 int probe_tile(int ty, int g, int r, int d, int op, const void* x, const void* b, void* out,
@@ -653,6 +669,7 @@ int probe_carry(int variant, const void* x, void* out, int copies, int trips, vo
   }
   return (int)cudaGetLastError();
 }
+#endif  // PROBES_TILE
 #else
 // chain_kernel's arithmetic on the host. Returns 0, or -1 without an entry.
 int probe_chain_host(int ty, int op, int ns, const void* x, const void* b, void* out,

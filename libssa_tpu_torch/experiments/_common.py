@@ -36,10 +36,6 @@ OP_COUNT = {"add": 1, "sub": 1, "max": 1, "where_gt": 1, "max_add": 2, "max_add_
             "satadd": 2, "max3": 2, "max3_dpx": 2, "max3_relu": 3, "max3_relu_dpx": 3,
             "dpmix": 5, "dpmix_dpx": 5, "addc": 1, "maxmulc": 2, "select": 3, "max3mul": 4,
             "maxc": 1, "max3add": 4, "max3add_dpx": 4}
-DATASHEET = {  # one H100 SXM at 700 W: elementwise operations a second
-    "f32": 67e12 / 2,  # 128 FP32 lanes an SM; 67e12 counts a fused multiply-add as two
-    "i32": 67e12 / 4,  # half as many INT32 lanes
-}
 
 
 def inv_type(dtype: torch.dtype) -> str:
@@ -56,17 +52,21 @@ def require_cuda(device) -> torch.device:
 
 
 @functools.cache
-def lib() -> ctypes.CDLL:
+def lib(part: str) -> ctypes.CDLL:
+    """``csrc/probes.cu``'s library ``part``: "chain" (``probe_chain``) or
+    "tile" (``probe_tile``, ``probe_carry``), each its own nvcc build."""
     from ..util import cudabuild
 
-    lib = cudabuild.load(SOURCE)
+    lib = cudabuild.load(SOURCE, ({"chain": "PROBES_CHAIN", "tile": "PROBES_TILE"}[part],))
     p, i, ll, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
-    lib.probe_chain.argtypes = [i, i, i, p, p, p, ll, ll, u, u, i, i, p]
-    lib.probe_chain.restype = i
-    lib.probe_tile.argtypes = [i, i, i, i, i, p, p, p, ll, ll, u, u, i, i, p]
-    lib.probe_tile.restype = i
-    lib.probe_carry.argtypes = [i, p, p, i, i, p]
-    lib.probe_carry.restype = i
+    if part == "chain":
+        lib.probe_chain.argtypes = [i, i, i, p, p, p, ll, ll, u, u, i, i, p]
+        lib.probe_chain.restype = i
+    else:
+        lib.probe_tile.argtypes = [i, i, i, i, i, p, p, p, ll, ll, u, u, i, i, p]
+        lib.probe_tile.restype = i
+        lib.probe_carry.argtypes = [i, p, p, i, i, p]
+        lib.probe_carry.restype = i
     return lib
 
 
@@ -226,7 +226,7 @@ def stage_chain(op: str, type_name: str, a, b, reps: int, streams: int = 1,
     if blocks is None:
         blocks = -(-n // threads)
     w1, w2 = const_word(c1, type_name), const_word(c2, type_name)
-    dev, lb = a.device, lib()
+    dev, lb = a.device, lib("chain")
 
     def launch():
         with torch.cuda.device(dev):
@@ -260,7 +260,7 @@ def stage_tile(op: str, type_name: str, x, apps: int, axis: int, G: int, R: int,
     out = torch.empty_like(wx)
     blocks = -(-lines * G // threads)
     w1, w2 = const_word(c1, type_name), const_word(c2, type_name)
-    dev, lb = x.device, lib()
+    dev, lb = x.device, lib("tile")
 
     def launch():
         with torch.cuda.device(dev):
@@ -278,7 +278,7 @@ def stage_tile(op: str, type_name: str, x, apps: int, axis: int, G: int, R: int,
 # -- timing and the card -------------------------------------------------------
 
 
-def events_ms(fn, reps: int = 5) -> float:
+def events_ms(fn, reps: int = 3) -> float:
     """Min over ``reps`` of one call's time on CUDA events, after a warm-up."""
     fn()
     torch.cuda.synchronize()
@@ -293,7 +293,7 @@ def events_ms(fn, reps: int = 5) -> float:
     return best
 
 
-def slope_ms(fn_lo, fn_hi, reps: int = 5) -> tuple[float, float]:
+def slope_ms(fn_lo, fn_hi, reps: int = 3) -> tuple[float, float]:
     """(t_lo, t_hi), each the min of ``reps`` timings: the JAX probes' slope
     method, whose difference cancels launch and load costs."""
     return events_ms(fn_lo, reps), events_ms(fn_hi, reps)

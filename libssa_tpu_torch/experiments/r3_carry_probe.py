@@ -81,7 +81,7 @@ def stage(x: torch.Tensor, variant: str, trips: int = T):
         raise TypeError("x must be (copies, 8, 2048) float32")
     x = x.contiguous()
     out = torch.empty_like(x)
-    dev, lb, code = x.device, C.lib(), VARIANTS.index(variant)
+    dev, lb, code = x.device, C.lib("tile"), VARIANTS.index(variant)
 
     def launch():
         global launches

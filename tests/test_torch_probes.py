@@ -27,6 +27,7 @@ import inspect
 import os
 import shutil
 import subprocess
+import types
 from pathlib import Path
 
 import jax
@@ -399,24 +400,28 @@ def test_stage_cut_builds_are_their_own_libraries(monkeypatch):
     assert len(paths) == len(r3_banded_bisect.CUTS)
 
 
-def test_sass_mix_counts_opcodes_per_kernel():
-    """``sass_mix.counts`` on ``cuobjdump -sass`` text: predicated and
-    modified opcodes, kernels kept by pattern."""
-    from libssa_tpu_torch.experiments import sass_mix
 
-    sass = """
-        code for sm_90a
-                Function : _ZN6probes12chain_kernelILi2ELi4ELi1EEEvPKjS2_Pjxxjj
-        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
-        /*0000*/                   LDC R1, c[0x0][0x28] ;                 /* 0x00000a00ff017b82 */
-        /*0010*/                   VIADDMNMX R5, R5, R6, R6, !PT ;        /* 0x0000000605057246 */
-        /*0020*/              @!P0 VIADDMNMX R5, R5, R6, R6, !PT ;        /* 0x0000000605058246 */
-        /*0030*/                   IADD3.X R7, R7, RZ, RZ, P1, !PT ;      /* 0x000000ff07077210 */
-                Function : _ZN6probes12chain_kernelILi0ELi0ELi1EEEvPKjS2_Pjxxjj
-        /*0000*/                   FADD R5, R5, R6 ;                      /* 0x0000000605057221 */
-"""
-    got = sass_mix.counts(sass)
-    assert got["_ZN6probes12chain_kernelILi2ELi4ELi1EEEvPKjS2_Pjxxjj"] == {
-        "LDC": 1, "VIADDMNMX": 2, "IADD3.X": 1}
-    assert list(sass_mix.counts(sass, ["ILi0ELi0E"])) == [
-        "_ZN6probes12chain_kernelILi0ELi0ELi1EEEvPKjS2_Pjxxjj"]
+def test_probe_library_builds_in_two_parts(monkeypatch):
+    """``csrc/probes.cu`` builds as two libraries, one a macro: the chain
+    kernels (``probe_chain``) and the tile and carry kernels, each bound to
+    its own entry points."""
+    built = []
+    monkeypatch.setattr(cudabuild, "load", cudabuild.load.__wrapped__)
+    monkeypatch.setattr(cudabuild, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(cudabuild, "_build", lambda src, cc, flags: built.append(flags) or src)
+
+    class Lib:
+        def __init__(self, path):
+            self.probe_chain, self.probe_tile, self.probe_carry = (
+                types.SimpleNamespace() for _ in range(3))
+
+    monkeypatch.setattr(ctypes, "CDLL", Lib)
+    chain, tile = C.lib.__wrapped__("chain"), C.lib.__wrapped__("tile")
+    assert [tuple(f for f in flags if f.startswith("-D")) for flags in built] == [
+        ("-DPROBES_CHAIN",), ("-DPROBES_TILE",)]
+    assert len({cudabuild.library_path(C.SOURCE, "nvcc", flags) for flags in built}) == 2
+    assert chain.probe_chain.restype is ctypes.c_int and not vars(chain.probe_tile)
+    assert tile.probe_tile.restype is ctypes.c_int and not vars(tile.probe_chain)
+    assert len(tile.probe_carry.argtypes) == 6
+    with pytest.raises(KeyError):
+        C.lib.__wrapped__("both")
