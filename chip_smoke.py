@@ -7,8 +7,9 @@ Drives the port's main path — database search through ``SearchEngine`` and
 (500,000 lognormal subjects, about 174M residues). Phases, one line each:
 
 1. build K1 (``libssa_tpu_torch/csrc/interseq.cu``) with nvcc, and beside
-   it K3, K2, the probes (``csrc/probes.cu``, ``csrc/lp_rowsweep.cu``) and
-   K3's stage-cut builds, one nvcc each, all in parallel;
+   it K3, K2, the probes (``csrc/probes.cu``, ``csrc/lp_rowsweep.cu``), K3's
+   stage-cut builds and the parts of ``csrc/interseq_variants.cu``, one
+   nvcc each, all in parallel;
 2. K1 against its plain PyTorch version on random inputs (exact equality);
 3. the 500k-subject search: 8 queries through ``search_many`` (SW, k=10),
    one NW and one BIT8 query through ``search``, with K1's launch count;
@@ -53,7 +54,14 @@ Drives the port's main path — database search through ``SearchEngine`` and
     their launch counts; each exact one against its plain version at
     reduced trips (exact equality); the op-rate table (latency at one warp
     an SM, throughput at full occupancy), the row sweep and K3's stage
-    cuts at 16,384^2 and 100,000^2 beside the production K3.
+    cuts at 16,384^2 and 100,000^2 beside the production K3;
+13. K1's lazy-F design variants (``csrc/interseq_variants.cu``, the
+    counterparts of ``experiments/f_scan_probe.py``, ``v6_probe.py``,
+    ``v7_probe.py``, ``v8_probe.py`` and ``r2_kernel_golf.py``): every
+    variant at its probe's shape and at B = 65,536, beside the production
+    K1, with their launch counts, registers and spills; each exact variant's
+    scores equal to the production K1's at both shapes, and each variant
+    equal to its plain version (exact equality).
 
 The second-to-last line is a JSON object with each kernel's launches by
 the main path, its largest difference from the plain version, its time,
@@ -85,6 +93,8 @@ K2_REPLACES = "libssa_tpu/ops/ring_block_pallas.py:68"
 K2_SOURCE = "libssa_tpu_torch/csrc/ring_block.cu"
 PROBES_SOURCE = "libssa_tpu_torch/csrc/probes.cu"
 ROWSWEEP_SOURCE = "libssa_tpu_torch/csrc/lp_rowsweep.cu"
+VARIANTS_SOURCE = "libssa_tpu_torch/csrc/interseq_variants.cu"
+VARIANTS_PLAIN_N = 24  # phase 13: subject columns of the plain-version checks
 TRACE_PAIR = 100_000  # phase 11b: m = n, the reference's largest traceback demo
 # The least time for a kernel's work (the kernels line's bound_ms): the
 # larger of bytes over HBM's rate and operations over the card's rate for
@@ -422,20 +432,26 @@ def build_kernels():
         lib()
         return time.perf_counter() - t0
 
-    from libssa_tpu_torch.experiments import _common, r3_banded_bisect, r3_lp_bisect
+    from libssa_tpu_torch.experiments import (
+        _common, _interseq_variants, r3_banded_bisect, r3_lp_bisect)
 
     cuts = [functools.partial(longpair_cuda._lib, r3_banded_bisect.CUTS[v])
             for v in r3_banded_bisect.CUTS if v != "full"]
+    parts = [functools.partial(_interseq_variants.lib, p)
+             for p in range(_interseq_variants.PARTS)]
     libs = (interseq_cuda._lib, longpair_cuda._lib, ring_block_cuda._lib,
             functools.partial(_common.lib, "chain"), functools.partial(_common.lib, "tile"),
-            r3_lp_bisect._lib, *cuts)
+            r3_lp_bisect._lib, *parts, *cuts)
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
-        t_k1, t_k3, t_k2, t_chain, t_tile, t_rs, *t_cuts = pool.map(build, libs)
+        t_k1, t_k3, t_k2, t_chain, t_tile, t_rs, *t_rest = pool.map(build, libs)
+    t_parts, t_cuts = t_rest[:len(parts)], t_rest[len(parts):]
     say(f"phase 1 build K1 ({K1_SOURCE}), K3 ({K3_SOURCE}), K2 ({K2_SOURCE}), the probes "
-        f"({PROBES_SOURCE} in two builds, {ROWSWEEP_SOURCE}) and K3's {len(cuts)} stage-cut "
-        f"builds, nvcc sm_90a in parallel: ok, K1 {t_k1:.1f} s, K3 {t_k3:.1f} s, K2 "
-        f"{t_k2:.1f} s, probes {t_chain:.1f} s (chain) and {t_tile:.1f} s (tile), row sweep "
-        f"{t_rs:.1f} s, stage cuts {max(t_cuts):.1f} s")
+        f"({PROBES_SOURCE} in two builds, {ROWSWEEP_SOURCE}), K3's {len(cuts)} stage-cut "
+        f"builds and K1's variants ({VARIANTS_SOURCE} in {len(parts)} parts), nvcc sm_90a "
+        f"in parallel: ok, K1 {t_k1:.1f} s, K3 {t_k3:.1f} s, K2 {t_k2:.1f} s, probes "
+        f"{t_chain:.1f} s (chain) and {t_tile:.1f} s (tile), row sweep {t_rs:.1f} s, stage "
+        f"cuts {max(t_cuts):.1f} s, K1 variants "
+        + " ".join(f"{t:.1f}" for t in t_parts) + " s")
 
 
 # -- phase 7 ----------------------------------------------------------------
@@ -1169,6 +1185,99 @@ def phase12(dev):
     return entries
 
 
+# -- phase 13 ----------------------------------------------------------------
+
+# Each probe's variant in the kernels line.
+VARIANT_ENTRIES = (("f_scan_probe", "v1", "experiments/f_scan_probe.py:181",
+                    "the full in-strip scan, masked form"),
+                   ("v6_probe", "T8", "experiments/v6_probe.py:116",
+                    "the full scan, T = 8 codes a load, IL 1"),
+                   ("v7_probe", "v7", "experiments/v7_probe.py:91",
+                    "the full scan on narrowing rows"),
+                   ("v8_probe", "CH8", "experiments/v8_probe.py:94",
+                    "chunked-sequential F, CH = 8"),
+                   ("r2_kernel_golf", "a8nof", "experiments/r2_kernel_golf.py:154",
+                    "CH = 8, 8 running-max registers of Hnof, 2 columns a trip"))
+
+
+def phase13(dev):
+    """K1's lazy-F variants: every variant of the five probes at its probe's
+    shape and at B = 65,536 (the counts read right after), the exact ones
+    against the production K1, each against its plain version."""
+    import torch
+
+    from libssa_tpu_torch.experiments import _common as C
+    from libssa_tpu_torch.experiments import _interseq_variants as IV
+    from libssa_tpu_torch.experiments import (
+        f_scan_probe, r2_kernel_golf, v6_probe, v7_probe, v8_probe)
+
+    probes = {m.PROBE.name: m.PROBE
+              for m in (f_scan_probe, v6_probe, v7_probe, v8_probe, r2_kernel_golf)}
+    t0 = time.perf_counter()
+    clock0 = C.sample()
+    # The variants' path: counts from zero, read right after.
+    for p in probes.values():
+        p.launches = 0
+    results = {name: {B: p.measure_all(B, dev) for B in (p.B, IV.B_FILLED)}
+               for name, p in probes.items()}
+    launches = {name: p.launches for name, p in probes.items()}
+    clock1 = C.sample()
+    t_path = time.perf_counter() - t0
+    for name, n in launches.items():
+        if n <= 0:
+            fail(13, f"{name}'s kernel was not launched")
+    for name, by_b in results.items():
+        for B, (rows, _) in by_b.items():
+            bad = [v for v, r in rows.items() if r["equal_k1"] is False]
+            if bad:
+                fail(13, f"{name} at B={B}: {bad} differ from the production K1")
+    for name, p in probes.items():
+        bad = p.check_plain(dev, VARIANTS_PLAIN_N)
+        if bad:
+            fail(13, f"{name}: {bad} differ from their plain versions")
+    # K1's own chain inside the same harness, beside the production K1.
+    base = IV.Probe("K1 chain in the variants' harness (seq)", {"seq": IV.BASELINE},
+                    B=2048, Q=11, R=1)
+    base_runs = {B: base.measure_all(B, dev) for B in (base.B, IV.B_FILLED)}
+    if any(rows["seq"]["equal_k1"] is False for rows, _ in base_runs.values()) or \
+            base.check_plain(dev, VARIANTS_PLAIN_N):
+        fail(13, "the seq variant differs from the production K1 or its plain version")
+    say(f"phase 13 K1 variants' path {t_path:.1f} s ({clock0} -> {clock1}: clocks.sm, "
+        f"power.draw, power.limit); launches {launches}; every exact variant equals the "
+        f"production K1 at both shapes; every variant equals its plain version (m=256, "
+        f"subjects cut to n={VARIANTS_PLAIN_N}; tolerance exact)")
+    for name, by_b in results.items():
+        for B, (rows, k1_ms) in by_b.items():
+            say(f"phase 13 {probes[name].report(B, rows, k1_ms)}")
+    for B, run in base_runs.items():
+        say(f"phase 13 {base.report(B, *run)}")
+
+    # The kernels line: each probe's representative at its probe's shape,
+    # and its plain version once on the same inputs.
+    entries = []
+    for name, variant, replaces, what in VARIANT_ENTRIES:
+        p = probes[name]
+        inputs = p.inputs(p.B, dev)
+        got = p.stage(*inputs, variant)()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = p.plain(*inputs, variant)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t1)
+        err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+        if err:
+            fail(13, f"{name} {variant} differs from its plain version by {err}")
+        b_ms, b_by = bound_ms(IV.M * p.B * IV.N, CELL_SW, IV.N * p.B + 12 * p.B)
+        entries.append({
+            "name": f"K1 variant {name} {variant} ({what}; SW, m={IV.M} B={p.B} n={IV.N})",
+            "route": "cuda", "source": VARIANTS_SOURCE, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": err,
+            "ms": results[name][p.B][0][variant]["ms"], "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    say(f"phase 13 done in {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
 def bound_ms(cells: int, cell: tuple[float, float], nbytes: int) -> tuple[float, str]:
     """The least time for ``cells`` DP cells of ``cell`` = (int32 adds, DPX)
     each, in ms, and what bounds it."""
@@ -1203,6 +1312,7 @@ def main() -> int:
     err10, t_k2, t_k2_plain, k2_cells = phase10(dev)
     k2_launches = phase11(dev)
     probe_entries = phase12(dev)
+    variant_entries = phase13(dev)
 
     # bound_ms at each timed shape: K1 at bench.py's kernel shape (subject
     # codes in, one score and range out per subject), K3 at 8a SW (codes in),
@@ -1247,7 +1357,7 @@ def main() -> int:
         "bound_ms": b_k2[0],
         "bound_by": b_k2[1],
         "library_ms": None,
-    }, *probe_entries]}))
+    }, *probe_entries, *variant_entries]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

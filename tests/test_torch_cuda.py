@@ -1,5 +1,6 @@
-"""K1, K3, K2, the search engine, the linear-space traceback and the
-probes' kernels on an NVIDIA GPU, against the plain version and the CPU.
+"""K1, K3, K2, the search engine, the linear-space traceback, the probes'
+kernels and K1's variants on an NVIDIA GPU, against the plain version and
+the CPU.
 
 Every test here needs a card: it is marked ``cuda`` and skips without one.
 The file imports neither JAX nor the JAX package, so it also runs where
@@ -17,6 +18,7 @@ import torch
 
 from libssa_tpu_torch import matrices, oracle
 from libssa_tpu_torch.constants import BitWidth, SymType
+from libssa_tpu_torch.experiments import _interseq_variants as IV
 from libssa_tpu_torch.io.db import PAD_CODE, SequenceDB
 from libssa_tpu_torch.ops import (
     interseq,
@@ -378,3 +380,31 @@ def test_k3_stage_cuts_build_and_terminate(dev):
         torch.cuda.synchronize()
         if v == "full":
             assert int(out) == int(r3_banded_bisect.plain(q, s, mat, Q, R))
+
+
+# -- K1's lazy-F variants (csrc/interseq_variants.cu) ------------------------------
+
+
+@pytest.mark.parametrize("idx", range(len(IV.INSTANCES)))
+def test_k1_variant_matches_plain_and_k1(dev, idx):
+    """Every instantiation equals its plain version (scores, hi, lo) on
+    random shapes with ragged, padded and length-0 lanes; the exact ones
+    equal the production K1's scores."""
+    v = IV.INSTANCES[idx][1]
+    rng = np.random.default_rng(100 + idx)
+    for m in (1, 40, 70, 100):
+        n, nb = int(rng.integers(1, 60)), int(rng.integers(1, 700))
+        prof = make_padded_profile(rng.integers(0, 20, m).astype(np.uint8), PADDED)
+        codes = rng.integers(0, 20, (n, nb)).astype(np.int8)
+        lens = rng.integers(0, n + 1, nb).astype(np.int32)
+        lens[:1] = 0
+        codes[np.arange(n)[:, None] >= lens[None, :]] = PAD_CODE
+        t = [torch.as_tensor(a).to(dev) for a in (prof.astype(np.int32), codes, lens)]
+        Q, R = int(rng.integers(1, 13)), 1
+        got = IV.stage(*t, Q, R, v)()
+        want = IV.plain(*t, Q, R, v)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (m, n, nb)
+        if v.exact:
+            k1 = interseq_cuda.interseq_scores_cuda(*t, Q, R)[0]
+            assert torch.equal(got[0], k1), (m, n, nb)

@@ -113,6 +113,8 @@ import json
 import torch
 torch.set_num_threads(1)
 from libssa_tpu_torch.experiments import op_rate_probe, r2_ilp_probe, r3_lp_bisect
+from libssa_tpu_torch.experiments import (
+    f_scan_probe, r2_kernel_golf, v6_probe, v7_probe, v8_probe)
 
 q, s, mat = (torch.as_tensor(a) for a in r3_lp_bisect.pair(1024))
 sw = r3_lp_bisect.plain(q[:300], s, mat, 11, 1, "full")
@@ -120,7 +122,9 @@ x = op_rate_probe.tile_input("bf16x2", 1, "cpu")[:, :16, :64]
 tile = op_rate_probe.plain(x, "scanpass", 4, iters=2)
 a, b = r2_ilp_probe.inputs("i16x2", 8, 64, "cpu")
 chain = r2_ilp_probe.plain(a, b + 1, "dpmix_dpx", 5)
-print(json.dumps({{"hits": [sw, float(tile.max()), int(chain.max())]}}))
+k1v = [int(mod.PROBE.plain(*mod.PROBE.inputs(40, "cpu", 6), next(iter(mod.VARIANTS)))[0].max())
+       for mod in (f_scan_probe, v6_probe, v7_probe, v8_probe, r2_kernel_golf)]
+print(json.dumps({{"hits": [sw, float(tile.max()), int(chain.max()), *k1v]}}))
 """
 
 
