@@ -82,14 +82,50 @@ def test_k1_matches_plain(dev, local, dtype):
                 assert g.dtype == w.dtype and torch.equal(g, w)
 
 
-def test_k1_splits_pairs_to_fit_scratch(dev):
-    """A scratch for two pairs: seven pairs take four launches, same result."""
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+@pytest.mark.parametrize("warps", [1, 2, 4, 8, 16])
+def test_k1_pipeline_matches_plain(dev, warps, dtype):
+    """Each warps count: SW/NW x track_range, m across the last strip's
+    guard, the pipeline's edges and the wrap, 4-byte (B = 64) and byte (B =
+    70) code slices, one launch each."""
+    rng = np.random.default_rng(300 + warps)
+    for m, B in ((1, 64), (31, 70), (33, 64), (70, 70), (300, 64), (300, 70)):
+        t = [torch.as_tensor(a).to(dev) for a in _pairs(rng, m, B=B)]
+        for local in (True, False):
+            for track in (True, False):
+                kw = dict(local=local, track_range=track, dtype=dtype)
+                before = interseq_cuda.launches
+                got = interseq_cuda.interseq_pairs_cuda(*t, 12, 1, warps=warps, **kw)
+                torch.cuda.synchronize()
+                assert interseq_cuda.launches == before + 1
+                want = interseq.interseq_pairs(*t, 12, 1, **kw)
+                for g, w in zip(got, want):
+                    assert g.dtype == w.dtype and torch.equal(g, w), (m, B, kw)
+
+
+def test_k1_attrs_within_budget(dev):
+    """At most 128 registers and no local memory in the int32 builds; Part
+    A holds four blocks an SM."""
+    for local in (True, False):
+        for track in (True, False):
+            for warps in (1, 8, 16):
+                a = interseq_cuda.attrs(local, track, False, warps)
+                assert a["regs"] <= 128 and a["local"] == 0, (local, track, warps, a)
+                if warps == 1:
+                    assert a["blocks_an_sm"] >= 4
+
+
+@pytest.mark.parametrize("warps", [1, 2])
+def test_k1_splits_pairs_to_fit_scratch(dev, warps):
+    """A scratch for two pairs: seven pairs take four launches, same result
+    (m = 70 crosses a strip edge in Part A and the wrap at two warps)."""
     rng = np.random.default_rng(5)
     t = [torch.as_tensor(a).to(dev) for a in _pairs(rng, 70, n_pad=40, B=130)]
     per_pair = 2 * 40 * 130 * 4  # H and F rows, int32
     scratch = torch.empty(2 * per_pair, dtype=torch.uint8, device=dev)
     before = interseq_cuda.launches
-    got = interseq_cuda.interseq_pairs_cuda(*t, 11, 1, track_range=True, scratch=scratch)
+    got = interseq_cuda.interseq_pairs_cuda(*t, 11, 1, track_range=True, scratch=scratch,
+                                            warps=warps)
     torch.cuda.synchronize()
     assert interseq_cuda.launches == before + 4
     want = interseq.interseq_pairs(*t, 11, 1, track_range=True)
@@ -112,6 +148,8 @@ def test_k1_wrapper_rejects_what_it_cannot_take(dev):
     mixed[2] = t[2].cpu()
     with pytest.raises(ValueError, match="device"):
         interseq_cuda.interseq_pairs_cuda(*mixed, 11, 1)
+    with pytest.raises(ValueError, match="warps"):
+        interseq_cuda.interseq_pairs_cuda(*t, 11, 1, warps=17)
 
 
 def test_engine_on_card_equals_cpu(dev):

@@ -218,12 +218,14 @@ def test_cudabuild_without_nvcc_raises(monkeypatch, tmp_path):
         cudabuild.nvcc_path()
 
 
-def _host_k1(tmp_path):
-    """K1's strip routine built for the host by the C++ compiler."""
+@pytest.fixture(scope="module")
+def host_k1(tmp_path_factory):
+    """K1's source built for the host by the C++ compiler: Part A lane by
+    lane, Part B warp by warp in the kernel's lockstep."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
-    out = tmp_path / "k1_host.so"
+    out = tmp_path_factory.mktemp("k1") / "k1_host.so"
     subprocess.run(
         [cxx, "-x", "c++", "-std=c++17", "-O1", "-shared", "-fPIC", "-o",
          str(out), str(cudabuild.CSRC / interseq_cuda.SOURCE)],
@@ -232,7 +234,7 @@ def _host_k1(tmp_path):
     lib = ctypes.CDLL(str(out))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.k1_interseq_host.argtypes = [
-        p, i, p, p, i, i, p, p, p, i, ll, ll, i, i, i, p, p, p, p,
+        p, i, p, p, i, i, p, p, p, i, ll, ll, i, i, i, i, p, p, p, p,
     ]
     lib.k1_interseq_host.restype = i
     lib.k1_strip_rows.argtypes = [i]
@@ -240,33 +242,119 @@ def _host_k1(tmp_path):
     return lib
 
 
-def test_k1_strip_routine_matches_plain(tmp_path):
-    """K1's source, host-built: every mode, both types, strip edges crossed."""
-    lib = _host_k1(tmp_path)
+def _run_host(lib, profs, codes, lengths, iq, ic, m_reals, Q, R, local,
+              track, wide, warps):
+    """One host K1 call: (scores, hi, lo) as numpy arrays."""
+    rows = profs.shape[1]
+    P, (g, n_pad, B) = len(iq), codes.shape
+    dt = np.int64 if wide else np.int32
+    out = [np.zeros((P, B), dt) for _ in range(3)]
+    scratch = np.zeros(P * 2 * n_pad * B, dt)
+    rc = lib.k1_interseq_host(
+        profs.ctypes.data, rows, codes.ctypes.data, lengths.ctypes.data,
+        n_pad, B, iq.ctypes.data, ic.ctypes.data, m_reals.ctypes.data, P, Q,
+        R, int(local), int(track), int(wide), warps, out[0].ctypes.data,
+        out[1].ctypes.data, out[2].ctypes.data, scratch.ctypes.data,
+    )
+    assert rc == 0
+    return out
+
+
+def test_k1_strip_routine_matches_plain(host_k1):
+    """K1's source, host-built: every mode, both types, strip edges crossed,
+    Part A and a four-warp Part B."""
+    lib = host_k1
     assert lib.k1_strip_rows(0) == 32 and lib.k1_strip_rows(1) == 16
     rng = np.random.default_rng(21)
     for m in (1, 17, 33, 70):
-        profs, codes, lengths, iq, ic, m_reals = _pair_batch(rng, m=m)
-        rows = profs.shape[1]
-        P, (g, n_pad, B) = len(iq), codes.shape
-        t = [torch.as_tensor(a) for a in (profs, codes, lengths, iq, ic, m_reals)]
+        batch = _pair_batch(rng, m=m)
+        t = [torch.as_tensor(a) for a in batch]
         for local in (True, False):
             for track in (True, False):
                 for wide in (0, 1):
-                    dt = np.int64 if wide else np.int32
-                    out = [np.zeros((P, B), dt) for _ in range(3)]
-                    scratch = np.zeros(P * 2 * n_pad * B, dt)
-                    lib.k1_interseq_host(
-                        profs.ctypes.data, rows, codes.ctypes.data,
-                        lengths.ctypes.data, n_pad, B, iq.ctypes.data,
-                        ic.ctypes.data, m_reals.ctypes.data, P, 12, 2,
-                        int(local), int(track), wide, out[0].ctypes.data,
-                        out[1].ctypes.data, out[2].ctypes.data,
-                        scratch.ctypes.data,
-                    )
                     want = interseq.interseq_pairs(
                         *t, 12, 2, local=local, track_range=track,
                         dtype="int64" if wide else "int32",
                     )
-                    for o, w in zip(out, want):
-                        np.testing.assert_array_equal(o, w.numpy())
+                    for warps in (1, 4):
+                        out = _run_host(lib, *batch, 12, 2, local, track, wide, warps)
+                        for o, w in zip(out, want):
+                            np.testing.assert_array_equal(o, w.numpy())
+
+
+def _pipeline_batch(rng, m, B):
+    """Three padded queries (m_real <= m), two chunks of B lanes with
+    length-0 and full-length lanes, 32-lane blocks of mixed lengths, and an
+    all-empty block where B > 64."""
+    profs, codes, lengths, iq, ic, m_reals = _pair_batch(rng, m=m, n_pad=36, B=B)
+    lengths[:, 3] = 36
+    if B > 64:
+        lengths[1, 32:64] = 0
+        codes[1, :, 32:64] = PAD_CODE
+    m_reals[0] = m
+    return profs, codes, lengths, iq, ic, m_reals
+
+
+@pytest.mark.parametrize("local", [True, False], ids=["sw", "nw"])
+@pytest.mark.parametrize("m", [1, 31, 32, 33, 70, 300])
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+def test_k1_host_pipeline_matches_plain(host_k1, warps, m, local):
+    """Host K1 at each warps count against the plain version: SW/NW x
+    track_range x int32/int64, the last strip's guard, the pipeline's edges
+    and the wrap past warps x S rows; 4-byte code slices (B = 64) and byte
+    slices (B = 70)."""
+    rng = np.random.default_rng(1000 + 10 * m + warps)
+    B = 64 if m % 2 == 0 else 70
+    batch = _pipeline_batch(rng, m, B)
+    t = [torch.as_tensor(a) for a in batch]
+    Q, R = (12, 2) if m % 3 else (11, 1)
+    for track in (True, False):
+        for wide in (0, 1):
+            want = interseq.interseq_pairs(
+                *t, Q, R, local=local, track_range=track,
+                dtype="int64" if wide else "int32",
+            )
+            got = _run_host(host_k1, *batch, Q, R, local, track, wide, warps)
+            for name, o, w in zip(("scores", "hi", "lo"), got, want):
+                np.testing.assert_array_equal(o, w.numpy(), err_msg=f"{name} {track} {wide}")
+
+
+@pytest.mark.parametrize("warps", [1, 4])
+@pytest.mark.parametrize("local", [True, False], ids=["sw", "nw"])
+def test_k1_host_equals_jax_k1(host_k1, local, warps):
+    """The JAX package's K1 function (its scan, as its own CPU tests run it)
+    and the host-built redesign on the same inputs: exactly equal."""
+    rng = np.random.default_rng(77 + warps)
+    codes, lengths = _batch(rng, 70, 40)
+    lengths[5] = 40
+    for m_real, rows in ((70, 70), (45, 64)):
+        q = rng.integers(0, 20, m_real).astype(np.uint8)
+        prof = make_padded_profile(q, PADDED, rows=rows).astype(np.int32)
+        want = _jax(prof, codes, lengths, 11, 1, local, True, "int32", m_real)
+        got = _run_host(
+            host_k1, prof[None], codes[None], lengths[None], np.zeros(1, np.int32),
+            np.zeros(1, np.int32), np.array([m_real], np.int32), 11, 1, local, True, 0,
+            warps,
+        )
+        _assert_same([g[0] for g in got], want)
+
+
+def test_choose_warps():
+    """Part A where 128-lane blocks fill the card; else one warp a strip,
+    up to 8, or up to 16 where 8 leaves the card under half full; even over
+    the passes down the query."""
+    cw = interseq_cuda.choose_warps
+    assert cw(65536, 1, 8, 132) == 1  # 512 blocks: about four an SM
+    assert cw(8192, 8, 8, 132) == 1  # a filled multi-chunk group
+    assert cw(57344, 1, 8, 132) == 8  # 448 blocks: 3.4 an SM
+    assert cw(8192, 1, 1, 132) == 1  # one strip: nothing to pipeline
+    assert cw(8192, 1, 8, 132) == 8  # bench.py's kernel shape
+    assert cw(8192, 7, 8, 132) == 8
+    assert cw(2048, 1, 16, 132) == 16  # pair_scores_batch, m = n = 512
+    assert cw(8192, 1, 16, 132) == 8  # int64 at m = 256: two passes of 8
+    assert cw(8192, 1, 3, 132) == 3  # capped by the strips
+    assert cw(8192, 1, 10, 132) == 5  # two even passes
+    assert cw(300, 1, 40, 132) == 14  # capped at 16: 40 strips in 3 passes of 14
+    for B, P, strips in ((37, 6, 10), (8192, 4, 8), (128, 1, 3), (4096, 3, 20)):
+        w = cw(B, P, strips, 132)
+        assert 2 <= w <= min(strips, interseq_cuda.MAX_WARPS)
