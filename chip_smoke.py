@@ -10,7 +10,8 @@ Drives the port's main path — database search through ``SearchEngine`` and
    it K3, K2, the probes (``csrc/probes.cu``, ``csrc/lp_rowsweep.cu``), K3's
    stage-cut builds and the parts of ``csrc/interseq_variants.cu``, one
    nvcc each, all in parallel; K1's registers, local bytes and blocks an SM
-   for each instantiation at 1, 8 and 16 warps down the query;
+   for each instantiation at 1, 8 and 16 warps down the query, and K2's at
+   each band height and warps count a block whose shared memory fits;
 2. K1 against its plain PyTorch version on random inputs (exact equality),
    at every warps count and at the wrapper's choice;
 3. the 500k-subject search: 8 queries through ``search_many`` (SW, k=10),
@@ -45,11 +46,16 @@ Drives the port's main path — database search through ``SearchEngine`` and
    NumPy oracle;
 10. K2 (``libssa_tpu_torch/csrc/ring_block.cu``, built in phase 1) against
     its plain PyTorch version on tiles whose boundaries come from a real DP
-    (exact equality): SW/NW, int32/int64, both band heights, RB or W = 1,
-    tall and wide tiles, one batched launch of mixed-size tiles, and the
-    tiles of one pair chained into its score, equal to K3's; K2's time
-    (the launch alone, and the whole wrapper) beside the plain version's
-    at phase 11a's first level;
+    (exact equality): SW/NW, int32/int64, both band heights at 1, 2, 4 and
+    8 stripes (warps) a block, RB or W = 1, tall and wide tiles, one batched
+    launch of mixed-size tiles at every warps count, and the tiles of one
+    pair chained into its score, equal to K3's; K2's launch alone at the
+    wrapper's choice and at every (band height, warps) at three shapes: (a)
+    phase 11a's first level (equal to the plain version, whose time and the
+    whole wrapper's are printed beside), (b) 11b's first SW end scan, one
+    100,000^2 tile, and (c) 11b NW's level with the most tiles (each equal
+    to the launch at 4 rows and 1 warp), with their bounds and the earlier
+    K2 design's times; and int64 at (a), equal to int32;
 11. the linear-space traceback at full width through
     ``SSAContext(device="cuda").align_pair(..., mode=ComputeMode.ALIGNMENT)``
     (Myers-Miller levels on K2, leaves on the native host solver): (a)
@@ -132,6 +138,11 @@ PAIR_PROTEIN = 16_384  # phase 8a: m = n, the shape libssa_tpu/api.py names
 PAIR_GENOME = 100_000  # phase 8b: m = n, 10**10 cells a strand
 BATCH_M, BATCH_P = 512, 2048  # phase 9: BASELINE config 1's batched half
 K1_WARPS = (None, 1, 2, 4, 8, 16)  # phase 2: K1's warps down the query
+K2_WARPS = (1, 2, 4, 8)  # phase 10: K2's stripes (warps) a block
+# Phase 10: the earlier K2 design's launch alone at shapes (a)-(c) (one warp a
+# block; PERF.md §6, experiments/k2_ab.py on one H100 80GB HBM3 at 700 W),
+# printed beside this run's.
+K2_EARLIER = {"a": "4.389-4.544 ms", "b": "35.300-35.564 ms", "c": "0.618-0.662 ms"}
 B_FILLED = 65_536  # phase 6: a filled K1 launch, 512 blocks of 128 lanes
 K1_SWEEP_B = (2048, 8192, 16384, 32768, 49152, 57344, 65536)  # phase 6: warps sweep
 # Phase 6: the earlier K1 design's times (one thread a lane with a row guard a
@@ -573,6 +584,14 @@ def build_kernels():
                                 f"{a['regs']},{a['local']},{a['blocks_an_sm']}" for a in got))
     say("phase 1 K1 instantiations (registers, local bytes, blocks an SM at warps 1 / 8 / "
         "16): " + "; ".join(rows))
+    rows = []
+    for wide in (False, True):
+        for local in (True, False):
+            for ch, w in k2_configs(8 if wide else 4):
+                a = ring_block_cuda.attrs(local, wide, ch, w)
+                rows.append(f"{'int64' if wide else 'int32'} {'SW' if local else 'NW'} rows "
+                            f"{ch} warps {w}: {a['regs']},{a['local']},{a['blocks_an_sm']}")
+    say("phase 1 K2 instantiations (registers, local bytes, blocks an SM): " + "; ".join(rows))
 
 
 # -- phase 7 ----------------------------------------------------------------
@@ -847,7 +866,6 @@ def phase10(dev):
 
     from libssa_tpu_torch import matrices, oracle
     from libssa_tpu_torch.ops import longpair_cuda, ring_block, ring_block_cuda
-    from libssa_tpu_torch.ops.mm_device import DevicePair
 
     rng = np.random.default_rng(1010)
     padded = matrices.builtin("BLOSUM62").padded().astype(np.int32)
@@ -870,26 +888,30 @@ def phase10(dev):
                                                    R, local, *bounds)
                 if dt == torch.int32:
                     batch[local].append((q_d[r0:r0 + RB], s_d[c0:c0 + W], bounds, want))
-                for ch in ring_block_cuda.BAND_ROWS:
+                for ch, warps in k2_configs(dt.itemsize):
                     got = ring_block_cuda.ring_block_cuda(
                         q_d, s_d, [[r0, RB, c0, W]], mat_d, Q, R, local, *bounds,
-                        rows_per_thread=ch)
+                        rows_per_thread=ch, warps=warps)
                     torch.cuda.synchronize()
                     err = tiles_diff(got, want)
                     max_err = max(max_err, err)
                     n_cases += 1
                     if err:
                         fail(10, f"K2 differs from plain (RB={RB}, W={W}, at ({r0}, {c0}), "
-                                 f"local={local}, {dt}, rows {ch}): max |diff| {err}")
-    # Every tile above in one launch, SW and NW.
-    for local, tiles in batch.items():
+                                 f"local={local}, {dt}, rows {ch}, warps {warps}): max "
+                                 f"|diff| {err}")
+    # Every tile above in one launch, SW and NW, at the wrapper's choice and
+    # at every warps count.
+    for (local, tiles), warps in [(kv, w) for kv in batch.items() for w in (None, *K2_WARPS)]:
         qs = torch.cat([t[0] for t in tiles])
         ss = torch.cat([t[1] for t in tiles])
         rows = np.array([len(t[0]) for t in tiles])
         cols = np.array([len(t[1]) for t in tiles])
         jobs = np.stack([np.cumsum(rows) - rows, rows, np.cumsum(cols) - cols, cols], 1)
         flat = [torch.cat([t[2][k] for t in tiles]) for k in range(4)]
-        got = ring_block_cuda.ring_block_cuda(qs, ss, jobs, mat_d, Q, R, local, *flat)
+        got = ring_block_cuda.ring_block_cuda(qs, ss, jobs, mat_d, Q, R, local, *flat,
+                                              rows_per_thread=4 if warps else None,
+                                              warps=warps)
         want = [torch.cat(parts) if parts[0] is not None else None
                 for parts in zip(*[t[3] for t in tiles])]
         torch.cuda.synchronize()
@@ -897,7 +919,8 @@ def phase10(dev):
         max_err = max(max_err, err)
         n_cases += 1
         if err:
-            fail(10, f"the batched launch of {len(tiles)} tiles differs (local={local})")
+            fail(10, f"the batched launch of {len(tiles)} tiles differs (local={local}, "
+                     f"warps {warps})")
     # One pair's tiles chained into its score: equal to K3's.
     m, n, RB, W = 3000, 2500, 1024, 1000
     q = torch.as_tensor(rng.integers(0, 20, m).astype(np.uint8)).to(dev)
@@ -926,35 +949,106 @@ def phase10(dev):
         if chained != k3:
             fail(10, f"{m} x {n} in {RB} x {W} tiles on K2 scores {chained}, K3 {k3} "
                      f"(local={local})")
-    # K2's time at phase 11a's first Myers-Miller level (both passes of the
-    # root node of the 16,384^2 NW traceback), beside the plain version's.
-    _, _, _, q8, s8, _ = pair_cases()[0]
-    pair = DevicePair(q8, s8, padded, Q, R, device=dev)
-    jobs, tbs = pair.level_jobs([(0, pair.m, 0, pair.n, False, False)])
-    bounds = pair.bounds(jobs, tbs)
-    # The launch alone: its job table, ticket map and outputs staged first.
-    ms, got = cuda_ms(ring_block_cuda.stage(pair.q, pair.s, jobs, pair.matrix, Q, R, False,
-                                            *bounds, codes_checked=True))
-    # And the whole wrapper: staging, the code check and its wait included.
+    say(f"phase 10 K2 vs plain on the card: {n_cases} cases equal (SW/NW, int32/int64, "
+        f"rows per thread {ring_block_cuda.BAND_ROWS} x warps {K2_WARPS} where the block "
+        f"fits shared memory, RB or W = 1, tall, wide, one launch of {len(batch[True])} "
+        f"mixed tiles at every warps count, {m} x {n} chained in {RB} x {W} tiles = K3's "
+        f"score); max |diff| {max_err} (tolerance: exact)")
+    # K2's launch alone at shapes (a)-(c), at the wrapper's choice and at every
+    # (rows per thread, warps): (a) held to the plain version, (b) and (c) to
+    # the launch at 4 rows and 1 warp (the plain version takes minutes there).
+    from libssa_tpu_torch.experiments import k2_ab
+
+    shapes = k2_ab.shapes(sys.modules[__name__], dev)
+    res = k2_sweep(shapes, Q, R)
+    a_pair, a_jobs, a_bounds, _ = shapes["a"]
+    # And the whole wrapper at (a): staging, the code check and its wait included.
     ms_wrapper, _ = cuda_ms(lambda: ring_block_cuda.ring_block_cuda(
-        pair.q, pair.s, jobs, pair.matrix, Q, R, False, *bounds))
+        a_pair.q, a_pair.s, a_jobs, a_pair.matrix, Q, R, False, *a_bounds))
     t0 = time.perf_counter()
-    want = ring_block.ring_block_batch_plain(pair.q, pair.s, jobs, pair.matrix, Q, R, False,
-                                             *bounds)
+    want = ring_block.ring_block_batch_plain(a_pair.q, a_pair.s, a_jobs, a_pair.matrix, Q, R,
+                                             False, *a_bounds)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
-    err = tiles_diff(got, want)
-    max_err = max(max_err, err)
-    if err:
-        fail(10, "K2 differs from plain at phase 11a's first level")
+    for key, got in res["a"]["outputs"].items():
+        err = tiles_diff(got, want)
+        max_err = max(max_err, err)
+        if err:
+            fail(10, f"K2 differs from plain at (a), 11a's first level, at {key}")
+    for shape in ("b", "c"):
+        ref = res[shape]["outputs"][(4, 1)]
+        for key, got in res[shape]["outputs"].items():
+            if tiles_diff(got, ref):
+                fail(10, f"K2 at ({shape}) with {key} differs from rows 4, warps 1")
+    for shape, r in res.items():
+        jobs = shapes[shape][1]
+        say(f"phase 10 K2 at ({shape}) {K2_SHAPES[shape]}: {len(jobs)} tiles, rows "
+            f"{int(jobs[:, 1].min())}-{int(jobs[:, 1].max())}, cols "
+            f"{int(jobs[:, 3].min())}-{int(jobs[:, 3].max())}, {r['cells']} cells; launch "
+            f"alone at the wrapper's choice (rows {r['chosen'][0]}, warps {r['chosen'][1]}) "
+            f"{r['ms']:.3f} ms ({r['cells'] / r['ms'] / 1e6:.2f} GCUPS, min of 3; earlier "
+            f"design {K2_EARLIER[shape]}); bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}); sweep (rows, warps: ms) "
+            + ", ".join(f"{ch},{w}: {t:.3f}" for (ch, w), t in r["sweep"].items())
+            + ("; outputs equal to the plain version's" if shape == "a" else
+               "; every output equal to rows 4, warps 1"))
+    # int64 runs the same pipeline: (a) again with int64 boundaries, held to
+    # int32's outputs; its time is recorded only.
+    wide = ring_block_cuda.stage(a_pair.q, a_pair.s, a_jobs, a_pair.matrix, Q, R, False,
+                                 *(b.long() for b in a_bounds), codes_checked=True)
+    ms64, got64 = cuda_ms(wide)
+    if tiles_diff([t.long() if t is not None else None for t in res["a"]["outputs"][(4, 1)]],
+                  got64):
+        fail(10, "K2 in int64 differs from int32 at (a)")
+    say(f"phase 10 K2 at (a): the whole wrapper {ms_wrapper:.3f} ms, plain {plain_ms:.1f} ms; "
+        f"int64 (rows {wide.rows_per_thread}, warps {wide.warps}) {ms64:.3f} ms, equal to int32")
+    return max_err, res["a"]["ms"], plain_ms, res["a"]["bound"]
+
+
+K2_SHAPES = {"a": "11a's first level, NW", "b": "11b's first SW end scan",
+             "c": "11b NW's level with the most tiles"}
+
+
+def k2_configs(itemsize):
+    """K2's (rows per thread, warps a block) pairs whose block fits shared
+    memory."""
+    from libssa_tpu_torch.ops import ring_block_cuda as k2
+
+    return [(ch, w) for ch in k2.BAND_ROWS for w in K2_WARPS
+            if k2.smem_bytes(w, ch, itemsize) <= k2.MAX_SMEM]
+
+
+def k2_bound(jobs, local):
+    """``bound_ms`` of one K2 launch over ``jobs`` in int32: its cells, and
+    its bytes (codes in, boundaries in and out: 4 words a row and a column;
+    in SW each row's maximum and its column, 2 words more)."""
+    rows, cols = int(jobs[:, 1].sum()), int(jobs[:, 3].sum())
     cells = int((jobs[:, 1] * jobs[:, 3]).sum())
-    say(f"phase 10 K2 vs plain on the card: {n_cases} cases equal (SW/NW, int32/int64, "
-        f"rows per thread {ring_block_cuda.BAND_ROWS}, RB or W = 1, tall, wide, one launch "
-        f"of {len(batch[True])} mixed tiles, {m} x {n} chained in {RB} x {W} tiles = K3's "
-        f"score); max |diff| {max_err} (tolerance: exact). First level of 11a NW (2 tiles "
-        f"of {jobs[0, 1]} x {jobs[0, 3]}): K2 launch alone {ms:.3f} ms ({cells / ms / 1e6:.2f} "
-        f"GCUPS, min of 3), the whole wrapper {ms_wrapper:.3f} ms, plain {plain_ms:.1f} ms")
-    return max_err, ms, plain_ms, cells
+    nbytes = rows + cols + 16 * (rows + cols) + (8 * rows if local else 0)
+    return cells, bound_ms(cells, CELL_SW if local else CELL_NW, nbytes)
+
+
+def k2_sweep(shapes, Q, R):
+    """K2's launch alone (``stage``) at each shape, at the wrapper's choice
+    and at every ``k2_configs``: ms (min of 3 after a warm-up), outputs,
+    cells and bound."""
+    from libssa_tpu_torch.ops import ring_block_cuda
+
+    res = {}
+    for shape, (pair, jobs, bounds, local) in shapes.items():
+        def stage(**pin):
+            return ring_block_cuda.stage(pair.q, pair.s, jobs, pair.matrix, Q, R, local,
+                                         *bounds, codes_checked=True, **pin)
+
+        chosen = stage()
+        ms, _ = cuda_ms(chosen)
+        sweep, outputs = {}, {}
+        for ch, w in k2_configs(4):
+            sweep[(ch, w)], outputs[(ch, w)] = cuda_ms(stage(rows_per_thread=ch, warps=w))
+        cells, bound = k2_bound(jobs, local)
+        res[shape] = {"chosen": (chosen.rows_per_thread, chosen.warps), "ms": ms,
+                      "sweep": sweep, "outputs": outputs, "cells": cells, "bound": bound}
+    return res
 
 
 # -- phase 11 ----------------------------------------------------------------
@@ -973,9 +1067,9 @@ def phase11(dev):
     b62 = matrices.builtin("BLOSUM62")
     Q, R = oracle.gap_qr(11, 1)
     label8, _, _, q8, s8, _ = pair_cases()[0]
-    rng = np.random.default_rng(111)
-    qb = rng.integers(0, 20, TRACE_PAIR).astype(np.uint8)
-    sb = rng.integers(0, 20, TRACE_PAIR).astype(np.uint8)
+    from libssa_tpu_torch.experiments.k2_ab import trace_pair
+
+    qb, sb = trace_pair()
     pairs = ((f"11a {label8[3:]}", q8, s8),
              (f"11b {TRACE_PAIR} x {TRACE_PAIR} random protein BLOSUM62 11/1", qb, sb))
 
@@ -1431,18 +1525,16 @@ def main() -> int:
     err7 = phase7(dev)
     k3_launches, err8, (t_k3, t_k3_plain) = phase8(dev)
     phase9(dev)
-    err10, t_k2, t_k2_plain, k2_cells = phase10(dev)
+    err10, t_k2, t_k2_plain, b_k2 = phase10(dev)
     k2_launches = phase11(dev)
     probe_entries = phase12(dev)
     variant_entries = phase13(dev)
 
     # bound_ms at each timed shape: K1 at bench.py's kernel shape (subject
     # codes in, one score and range out per subject), K3 at 8a SW (codes in),
-    # K2 at 11a's first level (codes, boundaries and outputs: 4 words a row
-    # and a column, int32).
+    # K2 at (a), 11a's first level (``k2_bound``).
     b_k1 = bound_ms(256 * 8192 * 512, CELL_SW_TRACK, 8192 * 512 + 8192 * 12)
     b_k3 = bound_ms(PAIR_PROTEIN ** 2, CELL_SW, 2 * PAIR_PROTEIN)
-    b_k2 = bound_ms(k2_cells, CELL_NW, 4 * PAIR_PROTEIN * 17)
     say(json.dumps({"kernels": [{
         "name": "K1 interseq (inter-sequence SW/NW scoring)",
         "route": "cuda",

@@ -23,30 +23,101 @@ SOURCE = "ring_block.cu"
 WARP = 32  # bands (threads) per stripe
 BAND_ROWS = (4, 8)  # rows per thread with an instantiation in K2
 JOB_WORDS = 16  # 64-bit words per job in K2's table
+MAX_WARPS = 8  # stripes (compute warps) a K2 block
+EDGE = 128  # columns of a shared ring of a K2 block
+MAX_SMEM = 232448  # dynamic shared bytes a block may have
+SM_SMEM = 233472  # shared bytes of an SM, 1 KB of it reserved for each block
 
 launches = 0  # K2 launches made by this process; set to 0 to start a count
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
+def _lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """K2's library; ``defines`` switch on the stage cuts of a timing probe
+    (``csrc/ring_block.cu``'s header), and the default is K2 itself."""
     from ..util import cudabuild
 
-    lib = cudabuild.load(SOURCE)
+    lib = cudabuild.load(SOURCE, defines)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.k2_ring_block.argtypes = [p, p, i, p, ll, ll, i, i, i, p, p, p]
+    lib.k2_ring_block.argtypes = [p, p, i, i, p, ll, ll, i, i, i, p, p, p]
     lib.k2_ring_block.restype = i
+    lib.k2_attrs.argtypes = [i, i, i, i, p]
+    lib.k2_attrs.restype = i
+    bind_layout(lib)
+    return lib
+
+
+def bind_layout(lib: ctypes.CDLL) -> None:
+    """Type K2's layout queries in ``lib`` (the card's build or the host
+    build) and raise if the job table or shared memory differ from the
+    wrapper's."""
+    i = ctypes.c_int
     lib.k2_ring_slots.argtypes = []
     lib.k2_ring_slots.restype = i
     lib.k2_job_words.argtypes = []
     lib.k2_job_words.restype = i
+    lib.k2_smem_bytes.argtypes = [i, i, i]
+    lib.k2_smem_bytes.restype = ctypes.c_longlong
     if lib.k2_job_words() != JOB_WORDS:
         raise RuntimeError("K2's job table layout differs from the wrapper's")
-    return lib
+    if any(lib.k2_smem_bytes(w, ch, wide) != smem_bytes(w, ch, 8 if wide else 4)
+           for w in range(1, MAX_WARPS + 1) for ch in BAND_ROWS for wide in (0, 1)):
+        raise RuntimeError("K2's shared memory layout differs from the wrapper's")
 
 
-def job_table(jobs: np.ndarray, ch: int, q_addr: int, s_addr: int, addr: dict,
-              itemsize: int, ring: int) -> tuple[np.ndarray, np.ndarray]:
-    """K2's (J, JOB_WORDS) int64 job table and (stripes,) int32 ticket map.
+def smem_bytes(warps: int, ch: int, itemsize: int) -> int:
+    """Dynamic shared bytes of a K2 block: each compute warp's profile (ch x
+    32 symbols x 32 lanes of int32), then one ring a compute warp (H and F,
+    ``EDGE`` columns each)."""
+    return warps * ch * 32 * WARP * 4 + warps * 2 * EDGE * itemsize
+
+
+def choose_warps(jobs: np.ndarray, ch: int, sms: int, itemsize: int = 4) -> int:
+    """Stripes (compute warps) a K2 block for a launch over ``jobs`` (rows
+    [q_off, rows, s_off, cols]) at ``ch`` rows a thread, on a card of
+    ``sms`` SMs.
+
+    4, else 2, else 1: the largest that leaves at most a quarter of the
+    launch's compute warps without a stripe and whose groups all fit on
+    the card at once (``resident_blocks`` an SM), if any does; else the
+    largest that passes the first test alone. Measured on one H100 by
+    ``chip_smoke.py`` phase 10 (PERF.md §6): at the band height the wrapper
+    picks, 4 was the fastest or within 5% of the fastest at 11a's first
+    level, 11b's SW end scan and 11b NW's widest level; 8 lost 11% at the
+    first, and 2 lost 27-46% at 8 rows.
+    """
+    stripes = -(-np.asarray(jobs, np.int64).reshape(-1, 4)[:, 1] // (WARP * ch))
+    few_idle = []
+    for w in (4, 2):
+        groups = -(-stripes // w)
+        if 4 * int((groups * w - stripes).sum()) <= int(groups.sum()) * w:
+            if int(groups.sum()) <= resident_blocks(w, ch, itemsize) * sms:
+                return w
+            few_idle.append(w)
+    return few_idle[0] if few_idle else 1
+
+
+def resident_blocks(warps: int, ch: int, itemsize: int) -> int:
+    """K2 blocks an SM holds at once as its shared memory allows (at most
+    32). Registers may allow fewer: ``attrs`` reads the card's own count."""
+    return min(32, SM_SMEM // (smem_bytes(warps, ch, itemsize) + 1024))
+
+
+def attrs(local: bool, wide: bool, ch: int, warps: int) -> dict:
+    """ptxas's registers and local bytes a thread of one K2 instantiation,
+    its resident blocks an SM at ``warps`` and its dynamic shared bytes."""
+    out = (ctypes.c_int * 4)()
+    rc = _lib().k2_attrs(int(local), int(wide), int(ch), int(warps), out)
+    if rc != 0:
+        raise RuntimeError(f"K2 attributes at ch={ch}, warps={warps}: error {rc}")
+    return {"regs": out[0], "local": out[1], "blocks_an_sm": out[2], "smem": out[3]}
+
+
+def job_table(jobs: np.ndarray, ch: int, warps: int, q_addr: int, s_addr: int,
+              addr: dict, itemsize: int, ring: int) -> tuple[np.ndarray, np.ndarray]:
+    """K2's (J, JOB_WORDS) int64 job table and (groups,) int32 ticket map:
+    a tile's stripes of 32 * ``ch`` rows go in groups of ``warps``, one
+    block and one ticket each.
 
     ``addr`` holds the base address of each flat array (``leftH`` .. ``ring``;
     ``rowmax``/``rowarg`` 0 for NW); ``jobs`` rows are
@@ -57,8 +128,8 @@ def job_table(jobs: np.ndarray, ch: int, q_addr: int, s_addr: int, addr: dict,
     J = len(jobs)
     q_off, rows, s_off, cols = (jobs[:, k].astype(np.int64) for k in range(4))
     off = ring_block.offsets(jobs)
-    stripes = -(-rows // (WARP * ch))
-    first = np.concatenate([[0], np.cumsum(stripes)[:-1]]).astype(np.int64)
+    groups = -(-rows // (WARP * ch * warps))
+    first = np.concatenate([[0], np.cumsum(groups)[:-1]]).astype(np.int64)
     ring_off = 2 * ring * off["cols"]
     t = np.zeros((J, JOB_WORDS), np.int64)
     t[:, 0] = q_addr + q_off
@@ -73,7 +144,7 @@ def job_table(jobs: np.ndarray, ch: int, q_addr: int, s_addr: int, addr: dict,
     t[:, 13] = rows
     t[:, 14] = cols
     t[:, 15] = first
-    return t, np.repeat(np.arange(J, dtype=np.int32), stripes)
+    return t, np.repeat(np.arange(J, dtype=np.int32), groups)
 
 
 def ring_block_cuda(
@@ -90,6 +161,7 @@ def ring_block_cuda(
     topF: torch.Tensor,  # (sum(cols),)
     rows_per_thread: int | None = None,
     codes_checked: bool = False,
+    warps: int | None = None,
 ) -> ring_block.Tiles:
     """Every tile of ``jobs`` with one K2 launch; outputs stay on the device.
 
@@ -99,13 +171,15 @@ def ring_block_cuda(
     over all the launch's tiles). ``codes_checked`` skips the check that
     every code is below 32 (a reduction and a wait for the device), for a
     caller that checked its code buffers once before the upload.
+    ``warps`` pins the stripes a block (tests, ``chip_smoke.py``); None
+    takes ``choose_warps``.
     """
     if s_codes.device.type == "cpu":
         jobs = _check_tiles(q_codes, s_codes, jobs, leftH, leftE, topH, topF)
         return ring_block.ring_block_batch_plain(q_codes, s_codes, jobs, matrix_padded, Q,
                                                  R, local, leftH, leftE, topH, topF)
     return stage(q_codes, s_codes, jobs, matrix_padded, Q, R, local, leftH, leftE, topH,
-                 topF, rows_per_thread, codes_checked)()
+                 topF, rows_per_thread, codes_checked, warps)()
 
 
 def _check_tiles(q_codes, s_codes, jobs, leftH, leftE, topH, topF) -> np.ndarray:
@@ -131,13 +205,15 @@ def _check_tiles(q_codes, s_codes, jobs, leftH, leftE, topH, topF) -> np.ndarray
 
 
 def stage(q_codes, s_codes, jobs, matrix_padded, Q, R, local, leftH, leftE, topH, topF,
-          rows_per_thread=None, codes_checked=False) -> Callable[[], ring_block.Tiles]:
+          rows_per_thread=None, codes_checked=False, warps=None,
+          defines=()) -> Callable[[], ring_block.Tiles]:
     """One K2 launch made ready on CUDA tensors (``ring_block_cuda``'s
     arguments): the job table and ticket map copied to the device, the
     outputs and the stripe-edge scratch allocated. Returns the launch:
     each call resets the tickets, launches K2 once on the current stream
     and returns the same output tensors. Timing the launch alone times
-    K2 without the host's staging."""
+    K2 without the host's staging. ``defines`` builds a timing probe's
+    stage cuts in (``_lib``)."""
     jobs = _check_tiles(q_codes, s_codes, jobs, leftH, leftE, topH, topF)
     dev, dt = s_codes.device, leftH.dtype
     if dev.type != "cuda":
@@ -149,13 +225,19 @@ def stage(q_codes, s_codes, jobs, matrix_padded, Q, R, local, leftH, leftE, topH
         raise ValueError("a tile too wide for K2")
     if not codes_checked and int(torch.maximum(q_codes.max(), s_codes.max())) >= 32:
         raise ValueError("codes must be < 32")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if rows_per_thread is None:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         stripes8 = int((-(-jobs[:, 1] // (WARP * 8))).sum())
         rows_per_thread = 8 if stripes8 >= sms // 2 else 4
     if rows_per_thread not in BAND_ROWS:
         raise ValueError(f"rows_per_thread must be one of {BAND_ROWS}")
-    lib = _lib()
+    if warps is None:
+        warps = choose_warps(jobs, rows_per_thread, sms, leftH.element_size())
+    if not 1 <= warps <= MAX_WARPS or \
+            smem_bytes(warps, rows_per_thread, leftH.element_size()) > MAX_SMEM:
+        raise ValueError(f"K2 takes 1 .. {MAX_WARPS} warps a block within {MAX_SMEM} "
+                         f"shared bytes, not {warps} at {rows_per_thread} rows a thread")
+    lib = _lib(tuple(defines))
     ring = lib.k2_ring_slots()
     n_rows, n_cols = int(jobs[:, 1].sum()), int(jobs[:, 3].sum())
     out = ring_block.Tiles(
@@ -168,13 +250,13 @@ def stage(q_codes, s_codes, jobs, matrix_padded, Q, R, local, leftH, leftE, topH
     addr = {name: (t.data_ptr() if t is not None else 0) for name, t in zip(
         ("leftH", "leftE", "topH", "topF", *out._fields), (leftH, leftE, topH, topF, *out))}
     addr["ring"] = scratch.data_ptr()
-    table, stripe_job = job_table(jobs, rows_per_thread, q_codes.data_ptr(),
-                                  s_codes.data_ptr(), addr, leftH.element_size(), ring)
-    if len(stripe_job) >= 2**31:
+    table, group_job = job_table(jobs, rows_per_thread, warps, q_codes.data_ptr(),
+                                 s_codes.data_ptr(), addr, leftH.element_size(), ring)
+    if len(group_job) >= 2**31:
         raise ValueError("too many stripes for one K2 launch")
     table_d = torch.from_numpy(table).to(dev)
-    stripe_job_d = torch.from_numpy(stripe_job).to(dev)
-    counters = torch.empty(len(stripe_job) + 1, dtype=torch.int32, device=dev)  # ticket, progress
+    group_job_d = torch.from_numpy(group_job).to(dev)
+    counters = torch.empty(len(group_job) + 1, dtype=torch.int32, device=dev)  # ticket, progress
 
     def launch() -> ring_block.Tiles:
         global launches
@@ -182,7 +264,7 @@ def stage(q_codes, s_codes, jobs, matrix_padded, Q, R, local, leftH, leftE, topH
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.k2_ring_block(
-                table_d.data_ptr(), stripe_job_d.data_ptr(), len(stripe_job),
+                table_d.data_ptr(), group_job_d.data_ptr(), len(group_job), warps,
                 matrix_padded.data_ptr(), int(Q), int(R), int(local), int(dt == torch.int64),
                 rows_per_thread, counters[1:].data_ptr(), counters[0:1].data_ptr(), stream,
             )
@@ -195,4 +277,5 @@ def stage(q_codes, s_codes, jobs, matrix_padded, Q, R, local, leftH, leftE, topH
     # launch (table, ticket map, scratch) is safe: the caching allocator hands
     # their blocks out again only to work ordered after it on the stream.
     launch.scratch = scratch
+    launch.warps, launch.rows_per_thread = warps, rows_per_thread
     return launch

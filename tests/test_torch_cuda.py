@@ -252,17 +252,27 @@ def _tiles(rng, dev, local, dtype, n_jobs=6):
     return q, s, jobs, leftH, leftE, topH, topH - gap(n_cols)
 
 
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
 @pytest.mark.parametrize("ch", ring_block_cuda.BAND_ROWS)
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
 @pytest.mark.parametrize("local", [True, False], ids=["sw", "nw"])
-def test_k2_matches_plain(dev, local, dtype, ch):
-    """One launch of mixed tiles (RB or W = 1, stripe edges crossed)."""
+def test_k2_matches_plain(dev, local, dtype, ch, warps):
+    """One launch of mixed tiles (RB or W = 1, stripe edges crossed inside
+    a block and between blocks) at ``warps`` stripes a block; a block past
+    the shared memory is refused."""
     rng = np.random.default_rng(61 + ch + local)
     mat = torch.as_tensor(PADDED.astype(np.int32)).to(dev)
     q, s, jobs, *bounds = _tiles(rng, dev, local, dtype)
     before = ring_block_cuda.launches
+    if ring_block_cuda.smem_bytes(warps, ch, bounds[0].element_size()) > \
+            ring_block_cuda.MAX_SMEM:
+        with pytest.raises(ValueError, match="warps"):
+            ring_block_cuda.ring_block_cuda(q, s, jobs, mat, 12, 1, local, *bounds,
+                                            rows_per_thread=ch, warps=warps)
+        assert ring_block_cuda.launches == before
+        return
     got = ring_block_cuda.ring_block_cuda(q, s, jobs, mat, 12, 1, local, *bounds,
-                                          rows_per_thread=ch)
+                                          rows_per_thread=ch, warps=warps)
     torch.cuda.synchronize()
     assert ring_block_cuda.launches == before + 1
     want = ring_block_cuda.ring_block_cuda(q.cpu(), s.cpu(), jobs, mat.cpu(), 12, 1, local,

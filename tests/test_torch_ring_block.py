@@ -5,11 +5,14 @@ interpret mode) on tiles of a real DP, once the TPU layouts are converted:
 band-major (CH, B) edges, the corner-first top stream, the re-based bottom
 stream and ``track_pos`` steps. Tiles chained into whole pairs must equal
 ``libssa_tpu.oracle``. K2's CUDA source, built by the host C++ compiler,
-must equal the plain version, one tile or a batch of mixed tiles at a time;
-``tests/test_torch_cuda.py`` holds the kernel itself on the card. Tolerance:
-exact equality, since every value is an integer.
+must equal the plain version, one tile or a batch of mixed tiles at a time,
+at every warps count a block (W stripes of one tile, their edges through the
+shared ring) and band height; ``tests/test_torch_cuda.py`` holds the kernel
+itself on the card. Tolerance: exact equality, since every value is an
+integer.
 """
 import ctypes
+import functools
 import shutil
 import subprocess
 
@@ -222,16 +225,15 @@ def _host_k2(tmp_path):
     )
     lib = ctypes.CDLL(str(out))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.k2_ring_block_host.argtypes = [p, p, i, p, ll, ll, i, i, i]
+    lib.k2_ring_block_host.argtypes = [p, p, i, i, p, ll, ll, i, i, i]
     lib.k2_ring_block_host.restype = i
-    lib.k2_ring_slots.restype = i
-    lib.k2_job_words.restype = i
-    assert lib.k2_job_words() == ring_block_cuda.JOB_WORDS
+    ring_block_cuda.bind_layout(lib)  # raises if the layouts differ
     return lib
 
 
-def _run_host(lib, q, s, jobs, flat, Q, R, local, ch):
-    """One host 'launch' of K2's source over the batch; outputs as Tiles."""
+def _run_host(lib, q, s, jobs, flat, Q, R, local, ch, warps=1):
+    """One host 'launch' of K2's source over the batch, ``warps`` stripes a
+    block; outputs as Tiles."""
     dt = flat[0].numpy().dtype
     n_rows, n_cols = int(jobs[:, 1].sum()), int(jobs[:, 3].sum())
     ins = [np.ascontiguousarray(x.numpy()) for x in flat]
@@ -244,12 +246,14 @@ def _run_host(lib, q, s, jobs, flat, Q, R, local, ch):
     if not local:
         addr["rowmax"] = addr["rowarg"] = 0
     addr["ring"] = ring.ctypes.data
-    table, stripe_job = ring_block_cuda.job_table(
-        jobs, ch, qn.ctypes.data, sn.ctypes.data, addr, dt.itemsize, lib.k2_ring_slots())
+    table, group_job = ring_block_cuda.job_table(
+        jobs, ch, warps, qn.ctypes.data, sn.ctypes.data, addr, dt.itemsize,
+        lib.k2_ring_slots())
     mat = np.ascontiguousarray(PADDED.numpy())
-    rc = lib.k2_ring_block_host(table.ctypes.data, stripe_job.ctypes.data, len(stripe_job),
-                                mat.ctypes.data, Q, R, int(local), int(dt == np.int64), ch)
-    assert rc == 0
+    rc = lib.k2_ring_block_host(table.ctypes.data, group_job.ctypes.data, len(group_job),
+                                warps, mat.ctypes.data, Q, R, int(local),
+                                int(dt == np.int64), ch)
+    assert rc == 0  # -2: a handoff between warps would race on the card
     outs = [torch.as_tensor(o) for o in outs]
     return ring_block.Tiles(*outs[:4], *(outs[4:] if local else (None, None)))
 
@@ -280,4 +284,91 @@ def test_k2_stripe_routine_matches_plain(tmp_path, local):
     want = (jax_oracle.sw_score if local else jax_oracle.nw_score)(
         q.numpy(), s.numpy(), B62.scores, 11, 1)
     assert chained(q, s, Q, R, local, 200, 100, run) == want
-    assert lib.k2_ring_block_host(None, None, 0, None, 11, 1, 1, 0, 2) == -1
+    assert lib.k2_ring_block_host(None, None, 0, 1, None, 11, 1, 1, 0, 2) == -1
+
+
+@pytest.fixture(scope="module")
+def k2_host(tmp_path_factory):
+    return _host_k2(tmp_path_factory.mktemp("k2"))
+
+
+@functools.cache
+def _warps_batch(local, dt):
+    """One launch's tiles of a pair's real DP, and the plain version's
+    outputs: rows = 1, cols = 1, 2,100 rows (17 stripes of 128 rows, 9 of
+    256: more groups than the global ring's slots at every warps count, and
+    a stripe count no warps count divides), 300 rows (3 stripes of 128, 2 of
+    256: fewer stripes than warps), 700 rows (6 and 3 stripes), and two
+    more, all at offsets in both sequences."""
+    rng = np.random.default_rng(90 + local)
+    q, s = _codes(rng, 2200), _codes(rng, 300)
+    Q, R = oracle.gap_qr(10, 1)
+    jobs = np.array([[0, 2100, 0, 40], [5, 1, 7, 90], [300, 300, 250, 1], [40, 700, 3, 57],
+                     [1000, 257, 100, 200], [1500, 33, 290, 10]], np.int64)
+    parts = [real_bounds(q, s, Q, R, local, r0, c0, RB, W, dt) for r0, RB, c0, W in jobs]
+    flat = [torch.cat(x).contiguous() for x in zip(*parts)]
+    want = ring_block_cuda.ring_block_cuda(q, s, jobs, PADDED, Q, R, local, *flat)
+    return q, s, jobs, flat, Q, R, want
+
+
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+@pytest.mark.parametrize("ch", ring_block_cuda.BAND_ROWS)
+@pytest.mark.parametrize("dt", [torch.int32, torch.int64], ids=["int32", "int64"])
+@pytest.mark.parametrize("local", [True, False], ids=["sw", "nw"])
+def test_k2_warps_match_plain(k2_host, local, dt, ch, warps):
+    """K2's source, host-built, with ``warps`` stripes a block: every group
+    runs warp by warp through the shared-ring handoff in the kernel's
+    segment order, and equals the plain version on one launch of mixed
+    tiles. A block past the shared memory is refused."""
+    q, s, jobs, flat, Q, R, want = _warps_batch(local, dt)
+    wide = int(dt == torch.int64)
+    if ring_block_cuda.smem_bytes(warps, ch, 8 if wide else 4) > ring_block_cuda.MAX_SMEM:
+        assert k2_host.k2_ring_block_host(None, None, 0, warps, None, Q, R, int(local), wide,
+                                          ch) == -1
+        return
+    got = _run_host(k2_host, q, s, jobs, flat, Q, R, local, ch, warps)
+    for name, g, w in zip(ring_block.Tiles._fields, got, want):
+        assert (g is None) == (w is None), name
+        if w is not None:
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("local", [True, False], ids=["sw", "nw"])
+def test_k2_warps_match_pallas_interpret(k2_host, local):
+    """K2's source, host-built at 2 warps a block (3 stripes of 128 rows in
+    2 groups, so one edge through the shared ring and one through the
+    global ring), equals the JAX package's tile kernel in interpret mode."""
+    rng = np.random.default_rng(95 + local)
+    RB, W, r0, c0 = 264, 40, 9, 20
+    q, s = _codes(rng, r0 + RB + 2), _codes(rng, c0 + W + 3)
+    Q, R = oracle.gap_qr(10, 1)
+    bounds = [b.contiguous() for b in real_bounds(q, s, Q, R, local, r0, c0, RB, W)]
+    got = _run_host(k2_host, q, s, np.array([[r0, RB, c0, W]], np.int64), bounds, Q, R,
+                    local, 4, warps=2)
+    want = _jax_tile(q[r0:r0 + RB], s[c0:c0 + W], Q, R, local, *bounds)
+    for name in ("rightH", "rightE", "botH", "botF"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(), want[name], err_msg=name)
+    if local:
+        np.testing.assert_array_equal(got.rowmax.numpy(), want["rowmax"])
+        hit = want["rowmax"] > 0
+        np.testing.assert_array_equal(got.rowarg.numpy()[hit], want["rowarg"][hit])
+        assert (got.rowarg.numpy()[~hit] == 0).all()
+
+
+@pytest.mark.parametrize("rows,ch,n_tiles,want", [
+    (8192, 4, 2, 4),      # 11a's first level: 64 stripes a tile
+    (100_000, 8, 1, 4),   # 11b's SW end scan: 391 stripes
+    (781, 8, 128, 4),     # 11b NW's widest level: 4 stripes a tile
+    (300, 4, 40, 4),      # 3 stripes a tile: a quarter of W = 4 idle
+    (200, 4, 40, 2),      # 2 stripes a tile: half of W = 4 idle
+    (100, 4, 40, 1),      # 1 stripe a tile
+    (1024, 8, 150, 2),    # W = 4's 150 groups exceed the card at 1 block an SM
+    (1024, 8, 1000, 4),   # neither fits at once: the fewest idle warps
+])
+def test_choose_warps(rows, ch, n_tiles, want):
+    """K2's warps a block: 4, else 2, else 1, by the idle warps the tiles'
+    stripe counts leave and by the groups a 132-SM card holds at once."""
+    jobs = np.array([[0, rows, 0, 50]] * n_tiles, np.int64)
+    assert ring_block_cuda.choose_warps(jobs, ch, 132) == want
+    for w in (1, 2, 4):
+        assert ring_block_cuda.smem_bytes(w, ch, 8) <= ring_block_cuda.MAX_SMEM
