@@ -10,8 +10,9 @@ Drives the port's main path — database search through ``SearchEngine`` and
    it K3, K2, the probes (``csrc/probes.cu``, ``csrc/lp_rowsweep.cu``), K3's
    stage-cut builds and the parts of ``csrc/interseq_variants.cu``, one
    nvcc each, all in parallel; K1's registers, local bytes and blocks an SM
-   for each instantiation at 1, 8 and 16 warps down the query, and K2's at
-   each band height and warps count a block whose shared memory fits;
+   for each instantiation at 1, 8 and 16 warps down the query, and K2's and
+   K3's at each band height and warps count a block whose shared memory
+   fits;
 2. K1 against its plain PyTorch version on random inputs (exact equality),
    at every warps count and at the wrapper's choice;
 3. the 500k-subject search: 8 queries through ``search_many`` (SW, k=10),
@@ -33,14 +34,17 @@ Drives the port's main path — database search through ``SearchEngine`` and
    ``choose_warps``), and int64 at the kernel shape;
 7. K3 (``libssa_tpu_torch/csrc/longpair.cu``, built in phase 1 beside K1)
    against its plain PyTorch version on random pairs (exact equality):
-   SW/NW, int32/int64, both band heights, protein and ACGT, m or n = 1,
+   SW/NW, int32/int64, both band heights at 1, 2, 3, 4, 6 and 8 stripes (warps)
+   a block where the shared memory fits, protein and ACGT, m or n = 1,
    m >> n, n >> m, a matrix entry above 256, and a score bound past 2**31;
 8. the 1-vs-1 score path at full width through
    ``SSAContext(device="cuda").align_pair(..., mode=ComputeMode.SCORE)``,
    held against the same call on the plain version: (a) a 16,384 x 16,384
    protein pair, BLOSUM62 11/1, SW and NW; (b) a 100,000 x 100,000 ACGT
    pair, 5/-4, gaps 10/1, SW, both strands; with K3's launch count and
-   time (CUDA events) beside the plain version's;
+   time (CUDA events) beside the plain version's, and K3's launch at every
+   (band height, warps) on 8a SW and 8b's best strand, beside the
+   wrapper's choice and the earlier K3 design's times;
 9. BASELINE config 1's batched half: ``pair_scores_batch`` on K1, m = n =
    512, P = 2048, NW, BLOSUM62 11/1, against the plain version and the
    NumPy oracle;
@@ -139,6 +143,10 @@ PAIR_GENOME = 100_000  # phase 8b: m = n, 10**10 cells a strand
 BATCH_M, BATCH_P = 512, 2048  # phase 9: BASELINE config 1's batched half
 K1_WARPS = (None, 1, 2, 4, 8, 16)  # phase 2: K1's warps down the query
 K2_WARPS = (1, 2, 4, 8)  # phase 10: K2's stripes (warps) a block
+K3_WARPS = (1, 2, 3, 4, 6, 8)  # phases 7 and 8: K3's stripes (warps) a block
+# Phase 8: the earlier K3 design's launch (one warp a block; PERF.md §6, one
+# H100 80GB HBM3 at 700 W), printed beside this run's sweep.
+K3_EARLIER = {"8a": "5.718-5.942 ms", "8b": "35.5-36.1 ms"}
 # Phase 10: the earlier K2 design's launch alone at shapes (a)-(c) (one warp a
 # block; PERF.md §6, experiments/k2_ab.py on one H100 80GB HBM3 at 700 W),
 # printed beside this run's.
@@ -592,6 +600,22 @@ def build_kernels():
                 rows.append(f"{'int64' if wide else 'int32'} {'SW' if local else 'NW'} rows "
                             f"{ch} warps {w}: {a['regs']},{a['local']},{a['blocks_an_sm']}")
     say("phase 1 K2 instantiations (registers, local bytes, blocks an SM): " + "; ".join(rows))
+    rows = []
+    for wide in (False, True):
+        for local in (True, False):
+            for ch, w in k3_configs(8 if wide else 4):
+                a = longpair_cuda.attrs(local, wide, ch, w)
+                rows.append(f"{'int64' if wide else 'int32'} {'SW' if local else 'NW'} rows "
+                            f"{ch} warps {w}: {a['regs']},{a['local']},{a['blocks_an_sm']}")
+    say("phase 1 K3 instantiations (registers, local bytes, blocks an SM): " + "; ".join(rows))
+
+
+def k3_configs(itemsize):
+    """K3's (band height, warps) pairs whose block fits in shared memory."""
+    from libssa_tpu_torch.ops import longpair_cuda
+
+    return [(ch, w) for ch in longpair_cuda.BAND_ROWS for w in K3_WARPS
+            if longpair_cuda.fits(w, ch, itemsize)]
 
 
 # -- phase 7 ----------------------------------------------------------------
@@ -622,16 +646,16 @@ def phase7(dev):
             for local in (True, False):
                 want = longpair.longpair_score_plain(q, s, mat_d, Q, R, local, torch.int64)
                 for dt in (torch.int32, torch.int64):
-                    for ch in longpair_cuda.BAND_ROWS:
+                    for ch, w in k3_configs(8 if dt == torch.int64 else 4):
                         got = longpair_cuda.longpair_score_cuda(
-                            q, s, mat_d, Q, R, local, dt, rows_per_thread=ch)
+                            q, s, mat_d, Q, R, local, dt, rows_per_thread=ch, warps=w)
                         torch.cuda.synchronize()
                         err = abs(int(got) - int(want))
                         max_err = max(max_err, err)
                         n_cases += 1
                         if got.dtype != dt or err:
                             fail(7, f"K3 {int(got)} != plain {int(want)} ({name}, m={m}, "
-                                    f"n={n}, local={local}, {dt}, rows {ch})")
+                                    f"n={n}, local={local}, {dt}, rows {ch}, warps {w})")
     # A matrix whose entries push score_bound past 2**31: the routing
     # itself picks int64.
     big = np.full((32, 32), -64, np.int64)
@@ -649,8 +673,9 @@ def phase7(dev):
             fail(7, f"int64 route: K3 {got}, plain {want}, oracle {ref}")
         n_cases += 1
     say(f"phase 7 K3 vs plain on the card: {n_cases} cases equal (SW/NW, int32/int64, "
-        f"rows per thread {longpair_cuda.BAND_ROWS}, protein/ACGT/entry>256, score "
-        f"past 2**31 also equal to the oracle); max |diff| {max_err} (tolerance: exact)")
+        f"(rows per thread, warps) {k3_configs(4)} in int32, {k3_configs(8)} in int64, "
+        f"protein/ACGT/entry>256, score past 2**31 also equal to the oracle); max |diff| "
+        f"{max_err} (tolerance: exact)")
     return max_err
 
 
@@ -724,7 +749,7 @@ def phase8(dev):
     if launches <= 0:
         fail(8, "K3 was not launched by align_pair(mode=SCORE)")
 
-    lines, sw16 = [], None
+    lines, sweeps, sw16 = [], [], None
     max_err = 0
     for (label, nucleotide, symtype, q_codes, s_codes, modes), k in zip(
             cases, (0, len(cases[0][5]))):
@@ -763,11 +788,47 @@ def phase8(dev):
                          f"{a.stats.seconds:.3f} s, plain {p.stats.seconds:.3f} s")
             if sw16 is None:
                 sw16 = (ms, plain_ms)
-    for line in lines:
+            if local:
+                sweeps.append(k3_sweep(label, qt, st, mat, Q, R, dt, a.score))
+    for line in lines + sweeps:
         say("phase 8 " + line)
     say(f"phase 8 align_pair(mode=SCORE) equals the plain version in every case; "
         f"K3 launches {launches}")
     return launches, max_err, sw16
+
+
+def k3_sweep(label, q, s, mat, Q, R, dt, score) -> str:
+    """K3's launch (SW) at every (band height, warps) that fits, each equal
+    to ``score``, beside the wrapper's choice and the earlier design; at 8b
+    also in int64 at each band height at the chosen warps and at the
+    wrapper's choice."""
+    import torch
+
+    from libssa_tpu_torch.ops import longpair_cuda
+
+    def run(ch=None, w=None, dtype=dt):
+        ms, out = cuda_ms(lambda: longpair_cuda.longpair_score_cuda(
+            q, s, mat, Q, R, True, dtype, rows_per_thread=ch, warps=w))
+        if int(out) != score:
+            fail(8, f"{label} K3 at rows {ch}, warps {w}, {dtype}: {int(out)}, not {score}")
+        return ms
+
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    ch0 = longpair_cuda.band_rows(len(q), sms)
+    w0 = longpair_cuda.choose_warps(len(q), ch0, sms)
+    by = {}
+    for ch, w in k3_configs(8 if dt == torch.int64 else 4):
+        by.setdefault(ch, []).append(f"{w} {run(ch, w):.3f}")
+    wide = ""
+    if label.startswith("8b") and dt == torch.int32:
+        wide = "; int64 " + ", ".join(
+            f"rows {ch} warps {w0} {run(ch, w0, torch.int64):.3f}"
+            for ch in longpair_cuda.BAND_ROWS if longpair_cuda.fits(w0, ch, 8))
+        wide += f", at the choice {run(dtype=torch.int64):.3f} ms"
+    return (f"{label} SW K3 sweep, ms by rows a thread and warps a block: "
+            + "; ".join(f"rows {ch}: " + ", ".join(v) for ch, v in by.items())
+            + f"; the wrapper's choice (rows {ch0}, warps {w0}) {run():.3f}{wide} (earlier K3 "
+            f"design {K3_EARLIER[label[:2]]}; all equal to the score {score})")
 
 
 # -- phase 9 ----------------------------------------------------------------

@@ -24,6 +24,7 @@ import functools
 import numpy as np
 import torch
 
+from ..ops import interseq_cuda
 from . import _common as C
 
 SOURCE = "interseq_variants.cu"
@@ -148,8 +149,7 @@ def lib(part: int) -> ctypes.CDLL:
 
 def check_gaps(Q: int, R: int, profile: torch.Tensor, n: int):
     """Lazy F needs Q >= R; rows past m need every |H| below 2**30."""
-    if R < 0 or Q < R:
-        raise ValueError(f"lazy F is exact only for Q >= R >= 0 (Q={Q}, R={R})")
+    interseq_cuda.check_gaps(Q, R)
     m = profile.shape[0]
     max_abs = int(profile.abs().max()) if profile.numel() else 0
     if min(m, n) * max_abs + Q + max(m, n) * R >= LIMIT:

@@ -6,12 +6,15 @@ cuts are compile-time switches of the production K3 (``csrc/longpair.cu``,
 all off by default), each built into its own library:
 
 - ``full``: the production K3, held to the plain version;
-- ``no_wait``: no poll on the stripe above;
-- ``no_publish``: and no fence or progress release store;
-- ``no_edge``: and no stripe-edge stores;
+- ``no_wait``: no poll on the group above (the reader warp's);
+- ``no_publish``: and no fence or progress release store (the writer
+  warp's);
+- ``no_edge``: and no group-edge stores to the global ring (the writer
+  warp's copies);
 - ``no_profile``: a constant substitution row (the JAX ``nosel``);
 - ``no_shuffle``: no boundary shuffles (the JAX ``noroll``);
-- ``steady``: no column guard and no first-stripe branch (``steady``);
+- ``steady``: no column guard in any segment (``steady``; K3 has no
+  first-stripe branch since group 0's reader writes its top row);
 - ``bare``: all six cuts.
 
 Every variant but ``full`` gives a wrong score and is timed only, as the
@@ -55,13 +58,15 @@ def plain(q, s, matrix, Q, R, local=True, dtype=torch.int32):
 
 
 def stage(q, s, matrix, Q, R, variant: str = "full", local: bool = True,
-          dtype=torch.int32, rows_per_thread=None):
-    """``launch()`` of one K3 launch, with ``variant``'s stages cut."""
+          dtype=torch.int32, rows_per_thread=None, warps=None):
+    """``launch()`` of one K3 launch, with ``variant``'s stages cut
+    (``rows_per_thread`` and ``warps`` as ``longpair_score_cuda``'s)."""
     lib = longpair_cuda._lib(CUTS[variant])
 
     def launch():
         global launches
-        out = longpair_cuda.enqueue(lib, q, s, matrix, Q, R, local, dtype, rows_per_thread)
+        out = longpair_cuda.enqueue(lib, q, s, matrix, Q, R, local, dtype, rows_per_thread,
+                                    warps=warps)
         launches += 1
         return out
 

@@ -97,6 +97,14 @@ def attrs(local: bool, track: bool, wide: bool, warps: int) -> dict:
     return {"regs": out[0], "local": out[1], "blocks_an_sm": out[2], "smem": out[3]}
 
 
+def check_gaps(Q: int, R: int) -> None:
+    """Raise unless Q >= R >= 0: the kernels' lazy F (K1, K2, K3) is exact
+    only there. Their CUDA branches call it before any launch; the plain
+    versions, which match the reference at Q < R too, do not."""
+    if R < 0 or Q < R:
+        raise ValueError(f"the kernels are exact only for Q >= R >= 0 (Q={Q}, R={R})")
+
+
 def _check(name, t, dtype, shape, device):
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -158,6 +166,7 @@ def interseq_pairs_cuda(
     if warps is not None and not 1 <= int(warps) <= MAX_WARPS:
         raise ValueError(f"warps must lie in 1..{MAX_WARPS}, got {warps}")
     Q, R = int(gap_q), int(gap_r)
+    check_gaps(Q, R)
     if max_abs is None:
         max_abs = interseq._max_abs(profiles)
     out_t = interseq.compute_dtype(dtype, max_abs, m, n_pad, Q, R)

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from . import ring_block
-from .interseq_cuda import _check
+from .interseq_cuda import _check, check_gaps
 
 SOURCE = "ring_block.cu"
 WARP = 32  # bands (threads) per stripe
@@ -166,11 +166,11 @@ def ring_block_cuda(
     """Every tile of ``jobs`` with one K2 launch; outputs stay on the device.
 
     The DP type is ``leftH``'s. ``rows_per_thread`` pins K2's band height
-    (one of ``BAND_ROWS``); None takes 8 rows once 8-row stripes give
-    every other SM one, else 4 (K3's rule, ``longpair_cuda.band_rows``,
-    over all the launch's tiles). ``codes_checked`` skips the check that
-    every code is below 32 (a reduction and a wait for the device), for a
-    caller that checked its code buffers once before the upload.
+    (one of ``BAND_ROWS``); None takes 8 rows once 8-row stripes over all
+    the launch's tiles give every other SM one, else 4. ``codes_checked``
+    skips the check that every code is below 32 (a reduction and a wait for
+    the device), for a caller that checked its code buffers once before the
+    upload.
     ``warps`` pins the stripes a block (tests, ``chip_smoke.py``); None
     takes ``choose_warps``.
     """
@@ -218,6 +218,8 @@ def stage(q_codes, s_codes, jobs, matrix_padded, Q, R, local, leftH, leftE, topH
     dev, dt = s_codes.device, leftH.dtype
     if dev.type != "cuda":
         raise ValueError(f"K2 takes CUDA or CPU tensors, got {dev}")
+    Q, R = int(Q), int(R)
+    check_gaps(Q, R)
     _check("q_codes", q_codes, torch.uint8, tuple(q_codes.shape), dev)
     _check("s_codes", s_codes, torch.uint8, tuple(s_codes.shape), dev)
     _check("matrix_padded", matrix_padded, torch.int32, (32, 32), dev)
@@ -265,7 +267,7 @@ def stage(q_codes, s_codes, jobs, matrix_padded, Q, R, local, leftH, leftE, topH
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.k2_ring_block(
                 table_d.data_ptr(), group_job_d.data_ptr(), len(group_job), warps,
-                matrix_padded.data_ptr(), int(Q), int(R), int(local), int(dt == torch.int64),
+                matrix_padded.data_ptr(), Q, R, int(local), int(dt == torch.int64),
                 rows_per_thread, counters[1:].data_ptr(), counters[0:1].data_ptr(), stream,
             )
         if rc != 0:

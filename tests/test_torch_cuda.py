@@ -184,24 +184,39 @@ def test_engine_on_card_equals_cpu(dev):
         assert (gc, gr) == (wc, wr)
 
 
+K3_WARPS = (None, 1, 2, 3, 4, 8)  # None: the wrapper's choice
+
+
 @pytest.mark.parametrize("ch", longpair_cuda.BAND_ROWS)
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
 @pytest.mark.parametrize("local", [True, False], ids=["sw", "nw"])
 def test_k3_matches_plain(dev, local, dtype, ch):
-    """Stripe edges crossed, m not a multiple of a stripe, m or n = 1."""
+    """Stripe edges crossed inside a block and between blocks, m not a
+    multiple of a stripe, fewer stripes than warps, m or n = 1, n < 8: at
+    every stripes-a-block count that fits; one past the shared memory is
+    refused."""
     rng = np.random.default_rng(41 + ch)
     mat = torch.as_tensor(PADDED.astype(np.int32)).to(dev)
-    for m, n in ((1, 1), (1, 90), (90, 1), (31, 33), (1000, 70), (70, 1000), (2100, 517)):
+    itemsize = torch.empty(0, dtype=dtype).element_size()
+    for m, n in ((1, 1), (1, 90), (90, 1), (31, 33), (600, 5), (1000, 70), (70, 1000),
+                 (2100, 517), (5000, 300)):
         q = torch.as_tensor(rng.integers(0, 20, m).astype(np.uint8)).to(dev)
         s = torch.as_tensor(rng.integers(0, 20, n).astype(np.uint8)).to(dev)
-        before = longpair_cuda.launches
-        got = longpair_cuda.longpair_score_cuda(
-            q, s, mat, 12, 1, local, dtype, rows_per_thread=ch
-        )
-        torch.cuda.synchronize()
-        assert longpair_cuda.launches == before + 1
         want = longpair.longpair_score_plain(q, s, mat, 12, 1, local, dtype)
-        assert got.dtype == want.dtype and torch.equal(got, want), (m, n)
+        for warps in K3_WARPS:
+            before = longpair_cuda.launches
+            if warps is not None and not longpair_cuda.fits(warps, ch, itemsize):
+                with pytest.raises(ValueError, match="warps"):
+                    longpair_cuda.longpair_score_cuda(q, s, mat, 12, 1, local, dtype,
+                                                      rows_per_thread=ch, warps=warps)
+                assert longpair_cuda.launches == before
+                continue
+            got = longpair_cuda.longpair_score_cuda(
+                q, s, mat, 12, 1, local, dtype, rows_per_thread=ch, warps=warps
+            )
+            torch.cuda.synchronize()
+            assert longpair_cuda.launches == before + 1
+            assert got.dtype == want.dtype and torch.equal(got, want), (m, n, warps)
 
 
 def test_k3_wrapper_rejects_what_it_cannot_take(dev):
@@ -215,6 +230,48 @@ def test_k3_wrapper_rejects_what_it_cannot_take(dev):
         longpair_cuda.longpair_score_cuda(q + 32, q, mat, 12, 1)
     with pytest.raises(ValueError, match="rows_per_thread"):
         longpair_cuda.longpair_score_cuda(q, q, mat, 12, 1, rows_per_thread=3)
+    for warps in (0, 9):
+        with pytest.raises(ValueError, match="warps"):
+            longpair_cuda.longpair_score_cuda(q, q, mat, 12, 1, warps=warps)
+    with pytest.raises(ValueError, match="warps"):
+        longpair_cuda.longpair_score_cuda(q, q, mat, 12, 1, rows_per_thread=8, warps=8)
+
+
+def test_k3_attrs_at_every_fitting_warps(dev):
+    """ptxas's registers and the residency of every instantiation."""
+    for wide in (False, True):
+        for ch in longpair_cuda.BAND_ROWS:
+            for w in range(1, longpair_cuda.MAX_WARPS + 1):
+                if not longpair_cuda.fits(w, ch, 8 if wide else 4):
+                    continue
+                a = longpair_cuda.attrs(True, wide, ch, w)
+                assert a["blocks_an_sm"] >= 1 and a["smem"] == longpair_cuda.smem_bytes(
+                    w, ch, 8 if wide else 4)
+
+
+def test_wrappers_refuse_q_below_r_on_card(dev):
+    """K1's, K2's and K3's CUDA branches raise at Q < R or R < 0 before any
+    launch."""
+    rng = np.random.default_rng(5)
+    mat = torch.as_tensor(PADDED.astype(np.int32)).to(dev)
+    q = torch.as_tensor(np.array([13, 5, 15], np.uint8)).to(dev)
+    s = torch.as_tensor(np.array([6, 13], np.uint8)).to(dev)
+    prof = torch.as_tensor(make_padded_profile(q.cpu().numpy(), PADDED).astype(np.int32)).to(dev)
+    codes = s.to(torch.int8)[:, None].contiguous()
+    lens = torch.tensor([2], dtype=torch.int32, device=dev)
+    b = [torch.as_tensor(rng.integers(-30, 0, k).astype(np.int32)).to(dev) for k in (4, 3, 2, 2)]
+    for Q, R in ((1, 2), (4, -1)):
+        counts = (interseq_cuda.launches, ring_block_cuda.launches, longpair_cuda.launches)
+        with pytest.raises(ValueError, match="Q >= R >= 0"):
+            interseq_cuda.interseq_scores_cuda(prof, codes, lens, Q, R, local=False)
+        with pytest.raises(ValueError, match="Q >= R >= 0"):
+            interseq.pair_scores_batch(prof, s[None], lens, Q, R, local=False)
+        with pytest.raises(ValueError, match="Q >= R >= 0"):
+            ring_block_cuda.ring_block_cuda(q, s, [[0, 3, 0, 2]], mat, Q, R, False, *b)
+        with pytest.raises(ValueError, match="Q >= R >= 0"):
+            longpair_cuda.longpair_score_cuda(q, s, mat, Q, R, False)
+        assert counts == (interseq_cuda.launches, ring_block_cuda.launches,
+                          longpair_cuda.launches)
 
 
 def test_pair_scores_batch_on_card_equals_cpu(dev):
@@ -417,17 +474,24 @@ def test_row_sweep_matches_plain(dev, variant):
 
 
 def test_k3_stage_cuts_build_and_terminate(dev):
-    """Each stage-cut build runs to its end without a fault; the default
-    (``full``) is the production K3 and equals the plain version."""
+    """Each stage-cut build runs to its end without a fault at every
+    stripes-a-block count that fits; the default (``full``) is the
+    production K3 and equals the plain version."""
     from libssa_tpu_torch.experiments import r3_banded_bisect
 
     q, s, mat, Q, R = r3_banded_bisect.pair("16k protein", dev)
     q, s = q[:2500], s[:1900]
+    want = int(r3_banded_bisect.plain(q, s, mat, Q, R))
     for v in r3_banded_bisect.CUTS:
-        out = r3_banded_bisect.stage(q, s, mat, Q, R, v)()
-        torch.cuda.synchronize()
-        if v == "full":
-            assert int(out) == int(r3_banded_bisect.plain(q, s, mat, Q, R))
+        for ch in longpair_cuda.BAND_ROWS:
+            for warps in (1, 2, 4, 8):
+                if not longpair_cuda.fits(warps, ch, 4):
+                    continue
+                out = r3_banded_bisect.stage(q, s, mat, Q, R, v, rows_per_thread=ch,
+                                             warps=warps)()
+                torch.cuda.synchronize()
+                if v == "full":
+                    assert int(out) == want, (ch, warps)
 
 
 # -- K1's lazy-F variants (csrc/interseq_variants.cu) ------------------------------

@@ -9,6 +9,7 @@ holds the kernel itself on the card. Tolerance: exact equality, since every
 value is an integer.
 """
 import ctypes
+import functools
 import shutil
 import subprocess
 
@@ -156,16 +157,17 @@ def test_wrapper_on_cpu_runs_plain_without_launch():
 
 
 def test_band_rows_rule():
+    """4 rows a thread at every query length (the sweep on the card)."""
     assert longpair_cuda.band_rows(16_384, 132) == 4
-    assert longpair_cuda.band_rows(100_000, 132) == 8
-    assert longpair_cuda.band_rows(65_536, 132) == 8
+    assert longpair_cuda.band_rows(100_000, 132) == 4
+    assert longpair_cuda.band_rows(65_536, 132) == 4
     assert longpair_cuda.band_rows(1, 132) == 4
     assert all(longpair_cuda.band_rows(m, 132) in longpair_cuda.BAND_ROWS
                for m in (1, 4096, 16_896, 10**7))
 
 
 def _host_k3(tmp_path):
-    """K3's column routine and stripe pipeline, built by the C++ compiler."""
+    """K3's column routine and group pipeline, built by the C++ compiler."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
@@ -177,15 +179,30 @@ def _host_k3(tmp_path):
     )
     lib = ctypes.CDLL(str(out))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.k3_longpair_host.argtypes = [p, ll, p, i, p, ll, ll, i, i, i, i, p, p, p]
+    lib.k3_longpair_host.argtypes = [p, ll, p, i, p, ll, ll, i, i, i, ll, i, p, p, p]
     lib.k3_longpair_host.restype = i
-    lib.k3_ring_slots.restype = i
+    longpair_cuda.bind_layout(lib)
     return lib
 
 
+def _run_host(lib, q, s, mat, Q, R, local, ch, wide, warps=1):
+    """(rc, score) of K3's host build on one pair."""
+    m, n = len(q), len(s)
+    dt = np.int64 if wide else np.int32
+    bufs = np.zeros((2, lib.k3_ring_slots(), n), dt)
+    res = np.zeros(1, dt)
+    rc = lib.k3_longpair_host(
+        q.ctypes.data, m, s.ctypes.data, n, mat.ctypes.data, Q, R, int(local), wide,
+        ch, -(-m // (32 * ch)), warps, bufs[0].ctypes.data, bufs[1].ctypes.data,
+        res.ctypes.data,
+    )
+    return rc, int(res[0])
+
+
 def test_k3_stripe_routine_matches_plain(tmp_path):
-    """K3's source, host-built: both modes and types, every band height,
-    stripe edges crossed, m not a multiple of a stripe, m or n = 1."""
+    """K3's source, host-built at one stripe a block: both modes and types,
+    every band height, stripe edges crossed, m not a multiple of a stripe,
+    m or n = 1."""
     lib = _host_k3(tmp_path)
     ring = lib.k3_ring_slots()
     assert ring >= 2
@@ -200,21 +217,89 @@ def test_k3_stripe_routine_matches_plain(tmp_path):
         for local in (True, False):
             want = _plain(q, s, mat, Q, R, local, torch.int64)
             for ch in longpair_cuda.BAND_ROWS:
-                stripes = -(-m // (32 * ch))
                 for wide in (0, 1):
-                    dt = np.int64 if wide else np.int32
-                    bufs = np.zeros((2, ring, n), dt)
-                    res = np.zeros(1, dt)
-                    rc = lib.k3_longpair_host(
-                        q.ctypes.data, m, s.ctypes.data, n, mat.ctypes.data,
-                        Q, R, int(local), wide, ch, stripes, bufs[0].ctypes.data,
-                        bufs[1].ctypes.data, res.ctypes.data,
-                    )
+                    rc, got = _run_host(lib, q, s, mat, Q, R, local, ch, wide)
                     assert rc == 0
-                    assert int(res[0]) == want, (m, n, local, ch, wide)
+                    assert got == want, (m, n, local, ch, wide)
     res = np.zeros(1, np.int32)
     assert lib.k3_longpair_host(q.ctypes.data, 1, s.ctypes.data, 1, mat.ctypes.data,
-                                12, 1, 1, 0, 2, 1, None, None, res.ctypes.data) == -1
+                                12, 1, 1, 0, 2, 1, 1, None, None, res.ctypes.data) == -1
+
+
+@pytest.fixture(scope="module")
+def k3_host(tmp_path_factory):
+    return _host_k3(tmp_path_factory.mktemp("k3"))
+
+
+@functools.cache
+def _warps_pairs():
+    """Pairs for K3 at W stripes a block, with their plain scores (SW, NW):
+    4,200 rows (33 stripes of 128 rows, 17 of 256: more groups than the
+    global ring's slots at every W, and a stripe count no W > 1 divides),
+    300 rows (3 stripes of 128, 2 of 256: fewer stripes than W), m = 1,
+    n = 1, n < SEG, one stripe, and a matrix with entries above 256."""
+    rng = np.random.default_rng(93)
+    big = matrices.constant_scoring(300, -200, SymType.AMINOACID).padded()
+    cases = [(4200, 45, PADDED, 20, (12, 1)), (300, 90, ACGT.padded(), 4, (7, 2)),
+             (1, 40, PADDED, 20, (11, 1)), (70, 1, PADDED, 20, (11, 1)),
+             (520, 5, PADDED, 20, (10, 3)), (100, 120, big, 20, (11, 1))]
+    out = []
+    for m, n, mat, hi, (Q, R) in cases:
+        mat = np.ascontiguousarray(mat, np.int32)
+        q, s = _codes(rng, m, hi), _codes(rng, n, hi)
+        want = {local: _plain(q, s, mat, Q, R, local, torch.int64) for local in (True, False)}
+        out.append((q, s, mat, Q, R, want))
+    return out
+
+
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+@pytest.mark.parametrize("ch", longpair_cuda.BAND_ROWS)
+@pytest.mark.parametrize("wide", [0, 1], ids=["int32", "int64"])
+@pytest.mark.parametrize("local", [True, False], ids=["sw", "nw"])
+def test_k3_warps_match_plain(k3_host, local, wide, ch, warps):
+    """K3's source, host-built with ``warps`` stripes a block: every group
+    runs warp by warp through the shared-ring handoff in the kernel's
+    segment order (rc 0: no handoff or publish that would race on the
+    card), and equals the plain version. A block past the shared memory is
+    refused."""
+    if not longpair_cuda.fits(warps, ch, 8 if wide else 4):
+        res = np.zeros(1, np.int64)
+        assert k3_host.k3_longpair_host(None, 1, None, 1, None, 11, 1, int(local), wide, ch,
+                                        1, warps, None, None, res.ctypes.data) == -1
+        return
+    for q, s, mat, Q, R, want in _warps_pairs():
+        rc, got = _run_host(k3_host, q, s, mat, Q, R, local, ch, wide, warps)
+        assert rc == 0, (len(q), len(s))  # -2: a handoff would race on the card
+        assert got == want[local], (len(q), len(s))
+
+
+@pytest.mark.parametrize("local", [True, False], ids=["sw", "nw"])
+def test_k3_warps_match_pallas_interpret(k3_host, local):
+    """K3's source, host-built at 2 stripes a block (3 stripes of 128 rows
+    in 2 groups, so one edge through the shared ring and one through the
+    global ring), equals the JAX package's kernel in interpret mode."""
+    from libssa_tpu.ops.longpair_pallas import longpair_score_pallas
+
+    rng = np.random.default_rng(97 + local)
+    q, s = _codes(rng, 300), _codes(rng, 75)
+    Q, R = oracle.gap_qr(10, 1)
+    mat = np.ascontiguousarray(PADDED, np.int32)
+    want = longpair_score_pallas(q, s, PADDED, Q, R, local=local, interpret=True)
+    assert _run_host(k3_host, q, s, mat, Q, R, local, 4, 0, warps=2) == (0, want)
+
+
+@pytest.mark.parametrize("m,ch,want", [
+    (16_384, 4, 4),    # 8a: 128 stripes
+    (100_000, 4, 4),   # 8b: 782 stripes
+    (100_000, 8, 4),   # 8b at 8 rows: 391 stripes
+    (300, 4, 3),       # 3 stripes: one warp a stripe
+    (1, 4, 1),
+])
+def test_choose_warps(m, ch, want):
+    """K3's stripes a block at phase 8's pairs, at the band height
+    ``band_rows`` picks there, and at queries of fewer stripes."""
+    assert longpair_cuda.choose_warps(m, ch, 132) == want
+    assert longpair_cuda.fits(want, ch, 8)
 
 
 def _subject_batch(rng, P, n, zero=1):
