@@ -81,7 +81,18 @@ Drives the port's main path — database search through ``SearchEngine`` and
     variant at its probe's shape and at B = 65,536, beside the production
     K1, with their launch counts, registers and spills; each exact variant's
     scores equal to the production K1's at both shapes, and each variant
-    equal to its plain version (exact equality).
+    equal to its plain version (exact equality);
+14. sharded search (``libssa_tpu_torch/parallel/sharded.py``) on the card
+    over phase 3's database: meshes of 1 and 2 shards on the one card run
+    ``search`` SW and NW, ``search_many`` of 8 queries, a BIT8 ladder search
+    whose self-hit leaves the 8-bit window and the BIT64 lane, and 2 shards
+    a translated search (``search_reduced``) over 20,000 nucleotide records
+    in six frames; then two ranks under gloo and one under NCCL (world size
+    1), each a subprocess with one shard on the card, run ``search`` and
+    ``search_many`` over a smaller flagship database. Every hit list equals
+    the single-device engine's; walls beside the single-device engine's,
+    the host time of the plan and of ``SequenceDB.shard``, K1's launches and
+    ``requeued_chunks`` (which must be 0).
 
 The second-to-last line is a JSON object with each kernel's launches by
 the main path, its largest difference from the plain version, its time,
@@ -1554,6 +1565,229 @@ def phase13(dev):
     return entries
 
 
+# -- phase 14 ----------------------------------------------------------------
+
+RANK_SEQS = 100_000  # phase 14's subprocess ranks: a flagship-like DB of 100k
+RANK_TIMEOUT = 240  # seconds a phase-14 subprocess may take before it is killed
+NT_RECORDS = 20_000  # phase 14's translated database
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _same_hits(a, b) -> bool:
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_same_hits(x, y) for x, y in zip(a, b))
+    return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def sharded_paths(eng, queries, homolog, reps=1):
+    """Every path phase 14 drives, on ``eng``: ``{name: (hits, min wall s
+    of ``reps`` runs, stats of the last)}``."""
+    import torch
+
+    from libssa_tpu_torch.constants import BitWidth
+    from libssa_tpu_torch.search.manager import SearchStats
+
+    calls = {
+        "SW": lambda st: eng.search(queries[0], 10, True, stats=st),
+        "NW": lambda st: eng.search(queries[0], 10, False, stats=st),
+        "8q": lambda st: eng.search_many(queries, 10, True, st),
+        "BIT8": lambda st: eng.search(homolog, 10, True, BitWidth.BIT8, st),
+        "BIT64": lambda st: eng.search(queries[0], 10, True, BitWidth.BIT64, st),
+    }
+    out = {}
+    for name, fn in calls.items():
+        walls = []
+        for _ in range(reps):
+            st = SearchStats()
+            t0 = time.perf_counter()
+            hits = fn(st)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[name] = (hits, min(walls), st)
+    return out
+
+
+def rank_main(backend: str, rank: int, world: int, port: int, n_seqs: int) -> int:
+    """One rank of phase 14's ``torch.distributed`` job: one shard on the
+    card; prints one JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    from libssa_tpu_torch import matrices
+    from libssa_tpu_torch.ops import interseq_cuda
+    from libssa_tpu_torch.parallel.sharded import ShardedSearchEngine, make_db_mesh
+    from libssa_tpu_torch.search.manager import SearchEngine
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        db = flagship_db(n_seqs)
+        b62 = matrices.builtin("BLOSUM62")
+        single = SearchEngine(db, b62, 11, 1, device=dev)
+        t0 = time.perf_counter()
+        mesh = make_db_mesh()
+        eng = ShardedSearchEngine(db, b62, 11, 1, mesh)
+        eng._device_groups()
+        t_plan = time.perf_counter() - t0
+        qrng = np.random.default_rng(14)
+        queries = [qrng.integers(0, 20, 256).astype(np.uint8) for _ in range(8)]
+        walls = {}
+        for name, e in (("single", single), ("mesh", eng)):
+            times = []
+            for rep in range(4):  # a warm-up (the upload), then min of 3
+                if name == "mesh" and rep == 1:
+                    interseq_cuda.launches = 0
+                t0 = time.perf_counter()
+                hits = [e.search(queries[0], 10, True), e.search(queries[0], 10, False),
+                        e.search_many(queries, 10, True)]
+                times.append(time.perf_counter() - t0)
+            walls[name] = min(times[1:])
+            if name == "mesh":
+                launches = interseq_cuda.launches // 3
+            else:
+                want = hits
+        ok = _same_hits(hits, want) and eng.requeued_chunks == 0 and launches > 0
+        print(json.dumps({"rank": rank, "backend": backend, "world": world, "shards": mesh.size,
+                          "ok": ok, "wall_s": walls["mesh"], "single_wall_s": walls["single"],
+                          "plan_s": t_plan, "k1_launches": launches,
+                          "requeued": eng.requeued_chunks}), flush=True)
+        return 0 if ok else 1
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(backend: str, world: int) -> list[dict]:
+    """Phase 14's ``torch.distributed`` job: ``world`` subprocess ranks, each
+    killed if it outlives ``RANK_TIMEOUT``; their JSON lines."""
+    import subprocess as sp
+
+    port = _free_port()
+    procs = [sp.Popen([sys.executable, os.path.abspath(__file__), "rank", backend, str(r),
+                       str(world), str(port), str(RANK_SEQS)],
+                      stdout=sp.PIPE, stderr=sp.PIPE, text=True)
+             for r in range(world)]
+    out = []
+    try:
+        for p in procs:
+            try:
+                stdout, stderr = p.communicate(timeout=RANK_TIMEOUT)
+            except sp.TimeoutExpired:
+                fail(14, f"a {backend} rank did not finish in {RANK_TIMEOUT} s")
+            if p.returncode != 0:
+                fail(14, f"a {backend} rank failed (rc {p.returncode}):\n{stdout}\n"
+                         f"{stderr[-3000:]}")
+            out.append(json.loads(stdout.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return out
+
+
+def phase14(dev, eng):
+    import torch
+
+    from libssa_tpu_torch import matrices
+    from libssa_tpu_torch.constants import SymType
+    from libssa_tpu_torch.io.db import SequenceDB
+    from libssa_tpu_torch.ops import interseq_cuda
+    from libssa_tpu_torch.parallel.sharded import ShardedSearchEngine, make_db_mesh
+    from libssa_tpu_torch.search.manager import SearchEngine
+
+    t_phase = time.perf_counter()
+    db, b62 = eng.db, matrices.builtin("BLOSUM62")
+    qrng = np.random.default_rng(14)
+    queries = [qrng.integers(0, 20, 256).astype(np.uint8) for _ in range(8)]
+    homolog = db.sequence(int(np.argmax(db.lengths >= 300)))[:256]
+    want = sharded_paths(eng, queries, homolog, reps=3)
+    lines = ["single " + " ".join(f"{n} {w:.3f}" for n, (_, w, _) in want.items())]
+    t0 = time.perf_counter()
+    for d in range(2):
+        db.shard(d, 2)
+    t_shard = time.perf_counter() - t0
+    total_launches = 0
+    for n in (1, 2):
+        t0 = time.perf_counter()
+        mesh_eng = ShardedSearchEngine(db, b62, 11, 1, make_db_mesh(devices=[dev] * n))
+        mesh_eng._chunk_plan()
+        t_plan = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mesh_eng._device_groups()
+        torch.cuda.synchronize()
+        t_up = time.perf_counter() - t0
+        interseq_cuda.launches = 0  # the sharded path's launches only
+        got = sharded_paths(mesh_eng, queries, homolog)  # also the warm-up
+        launches = interseq_cuda.launches
+        got = {k: (v[0], w, v[2]) for (k, v), (_, w, _) in zip(
+            got.items(), sharded_paths(mesh_eng, queries, homolog, reps=3).values())}
+        if launches <= 0:
+            fail(14, f"K1 was not launched by the {n}-shard search")
+        total_launches += launches
+        for name, (hits, _, st) in got.items():
+            if not _same_hits(hits, want[name][0]):
+                fail(14, f"{n}-shard {name} hits differ from the single-device engine's")
+            if (st.cells, st.rescored) != (want[name][2].cells, want[name][2].rescored):
+                fail(14, f"{n}-shard {name} stats differ: {st} vs {want[name][2]}")
+        if not got["BIT8"][2].rescored:
+            fail(14, "the homolog's self-hit did not leave the 8-bit window")
+        if mesh_eng.requeued_chunks:
+            fail(14, f"{n}-shard engine re-queued {mesh_eng.requeued_chunks} chunks")
+        lines.append(f"{n} shard{'s' * (n > 1)} "
+                     + " ".join(f"{k} {w:.3f}" for k, (_, w, _) in got.items())
+                     + f", plan {t_plan:.2f} s, upload {t_up:.2f} s, K1 launches {launches}")
+        del mesh_eng
+
+    # Translated: nucleotide records in six frames, 2 shards.
+    rng = np.random.default_rng(15)
+    nt_len = np.clip(rng.lognormal(6.5, 0.5, NT_RECORDS).astype(int), 60, 6000)
+    ntdb = SequenceDB.from_sequences(
+        [f"nt{i}" for i in range(NT_RECORDS)],
+        [rng.integers(0, 4, n).astype(np.uint8) for n in nt_len], SymType.NUCLEOTIDE)
+    tdb, orig, _ = ntdb.translated(1, use_cache=False)
+    frames = [rng.integers(0, 20, 200).astype(np.uint8) for _ in range(6)]
+    single_t = SearchEngine(tdb, b62, 11, 1, device=dev)
+    mesh_t = ShardedSearchEngine(tdb, b62, 11, 1, make_db_mesh(devices=[dev, dev]))
+    walls = []
+    for e in (single_t, mesh_t, single_t, mesh_t):
+        if e is mesh_t:
+            interseq_cuda.launches = 0
+        t0 = time.perf_counter()
+        red = e.search_reduced(frames, orig, 10, True)
+        walls.append(time.perf_counter() - t0)
+        if e is single_t:
+            want_red = red
+        elif red is None or not _same_hits(red, want_red) or not interseq_cuda.launches:
+            fail(14, "2-shard search_reduced differs from the single-device engine's "
+                     "or did not launch K1")
+    total_launches += interseq_cuda.launches
+    if mesh_t.requeued_chunks:
+        fail(14, f"search_reduced re-queued {mesh_t.requeued_chunks} chunks")
+    lines.append(f"search_reduced {len(tdb)} entries ({tdb.total_residues} residues) x 6 "
+                 f"frames, 2 shards {walls[3]:.3f} (first {walls[1]:.3f}), single "
+                 f"{walls[2]:.3f} (first {walls[0]:.3f})")
+    del single_t, mesh_t
+
+    for r in run_ranks("gloo", 2) + run_ranks("nccl", 1):
+        lines.append(f"{r['backend']} rank {r['rank']}/{r['world']} ({r['shards']} shards, "
+                     f"{RANK_SEQS} subjects): SW+NW+8q {r['wall_s']:.3f} (min of 3) against "
+                     f"single {r['single_wall_s']:.3f}, plan {r['plan_s']:.2f} s, K1 launches "
+                     f"{r['k1_launches']}, requeued {r['requeued']}")
+    say(f"phase 14 sharded search, {card_line()}, {len(db)} subjects, walls s: "
+        + "; ".join(lines) + f"; SequenceDB.shard x 2 {t_shard:.2f} s (the plan does not "
+        f"call it); every hit list equal, requeued 0; phase {time.perf_counter() - t_phase:.1f} s")
+    return total_launches
+
+
 def bound_ms(cells: int, cell: tuple[float, float], nbytes: int) -> tuple[float, str]:
     """The least time for ``cells`` DP cells of ``cell`` = (int32 adds, DPX)
     each, in ms, and what bounds it."""
@@ -1582,6 +1816,7 @@ def main() -> int:
     launches, _, _, eng = phase34(dev)
     phase5()
     t_k1, t_plain = phase6(dev, eng)["kernel"]
+    launches += phase14(dev, eng)
     del eng
     err7 = phase7(dev)
     k3_launches, err8, (t_k3, t_k3_plain) = phase8(dev)
@@ -1601,7 +1836,7 @@ def main() -> int:
         "route": "cuda",
         "source": K1_SOURCE,
         "replaces": K1_REPLACES,
-        "launches": launches,
+        "launches": launches,  # phases 3 and 14
         "max_abs_err": err2,  # phase 6 fails on any difference
         "ms": t_k1,
         "plain_ms": t_plain,
@@ -1642,4 +1877,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["rank"]:  # one rank of phase 14's job
+        sys.exit(rank_main(sys.argv[2], *map(int, sys.argv[3:7])))
     sys.exit(main())

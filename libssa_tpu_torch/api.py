@@ -18,8 +18,8 @@ module-level default context for reference-style scripts:
 only when it is asked for. SCORE-mode ``align_pair`` runs the long-pair
 scorer (K3 on the card). Tracebacks above ``aligner.MATRIX_CELL_LIMIT``
 cells run the linear-space aligner, whose large levels run on K2 on the
-card. The sharded engine (``set_device_count(n > 1)``) raises
-``NotImplementedError`` naming its ROADMAP item.
+card. ``set_device_count(n > 1)`` shards the database over n devices
+(``parallel/sharded.py``): on a "cpu" context, n shards on the CPU.
 
 The enums are the port's own (``libssa_tpu_torch.constants``); a member of
 the JAX package's enums raises ``TypeError``.
@@ -174,6 +174,7 @@ class SSAContext:
         self.gap_extend: int = 1
         self.db: SequenceDB | None = None
         self.params = SearchParams()
+        self.device_count: int | None = None
         self._engine: SearchEngine | None = None
         self._translated_db = None  # (SequenceDB, orig_ids, frame labels)
 
@@ -263,12 +264,17 @@ class SSAContext:
         self._engine = None
 
     def set_device_count(self, n: int | None):
-        """Only the single-device engine exists in the port so far."""
-        if n not in (None, 1):
-            raise NotImplementedError(
-                f"set_device_count({n}): the sharded engine comes with "
-                "ROADMAP Queue 1 item 10 (slice 3)"
-            )
+        """Run searches over ``n`` database shards (``ShardedSearchEngine``).
+
+        ``None`` or 1: the single-device engine (the default). Otherwise the
+        DB shards over the first ``n`` devices (``0``/negative: all of them),
+        the shards' top-k lists merge with one ``all_gather``, and the hits
+        equal the single-device engine's. The devices are the visible cards,
+        one a rank in a ``torch.distributed`` job; on a "cpu" context the
+        shards go on the CPU, which counts as one device a core. More than
+        are visible raises ``RuntimeError`` at the next search.
+        """
+        self.device_count = None if n in (None, 1) else int(n)
         self._engine = None
 
     def set_thread_count(self, n: int):
@@ -335,11 +341,35 @@ class SSAContext:
             raise RuntimeError("init_score_matrix() must be called before searching")
         if self._engine is None:
             search_db, _, _ = self._search_db()
-            self._engine = SearchEngine(
-                search_db, self.matrix, self.gap_open, self.gap_extend,
-                self.params, device=self.device,
-            )
+            if self.device_count is not None:
+                self._engine = self._sharded_engine(search_db)
+            else:
+                self._engine = SearchEngine(
+                    search_db, self.matrix, self.gap_open, self.gap_extend,
+                    self.params, device=self.device,
+                )
         return self._engine
+
+    def _sharded_engine(self, search_db):
+        """The ``ShardedSearchEngine`` that ``set_device_count`` asked for."""
+        import torch.distributed as dist
+
+        from .parallel.sharded import ShardedSearchEngine, local_devices, make_db_mesh
+
+        world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+        local = local_devices(self.device)
+        avail = world * len(local)
+        n = self.device_count if self.device_count > 0 else avail
+        if n > avail:
+            raise RuntimeError(f"set_device_count({n}): only {avail} devices visible")
+        if n % world:
+            raise RuntimeError(
+                f"set_device_count({n}): {world} ranks must own equal shares of the shards"
+            )
+        return ShardedSearchEngine(
+            search_db, self.matrix, self.gap_open, self.gap_extend,
+            make_db_mesh(devices=local[: n // world]), self.params,
+        )
 
     def _fill_traceback(
         self, hit: Alignment, qc, sc, local: bool, stats: SearchStats = None

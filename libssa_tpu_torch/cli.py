@@ -13,13 +13,12 @@ on the CPU):
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
-import os
 import sys
 import time
 
 from .constants import AlignType, BitWidth, ComputeMode, Strand, SymType
+from .util.profiling import trace
 
 
 def _add_scoring_args(p: argparse.ArgumentParser):
@@ -43,7 +42,8 @@ def _add_scoring_args(p: argparse.ArgumentParser):
     p.add_argument("--d-gencode", type=int, default=1)
     p.add_argument("--algo", choices=["sw", "nw"], default="sw")
     p.add_argument("--devices", type=int, default=None,
-                   help="devices to shard the DB over (only 1 so far)")
+                   help="devices to shard the DB over (0: every device; with "
+                        "--device cpu, that many shards on the CPU)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default; fails without CUDA), "
                         "cuda:N or cpu")
@@ -108,24 +108,6 @@ def _hit_json(hits, header, cells, dt):
             "seconds": round(dt, 4)}
 
 
-@contextlib.contextmanager
-def _trace(logdir: str | None):
-    """A ``torch.profiler`` chrome trace of the block into ``logdir``."""
-    if not logdir:
-        yield
-        return
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        yield
-    os.makedirs(logdir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
 def cmd_search(args) -> int:
     ctx = _configure(args)
     ctx.init_db_fasta(args.db)
@@ -141,7 +123,7 @@ def cmd_search(args) -> int:
         queries = ctx.init_sequences_fasta(args.query)
         atype = AlignType.SW if args.algo == "sw" else AlignType.NW
         t0 = time.perf_counter()
-        with _trace(args.xprof):
+        with trace(args.xprof):
             lists = ctx.align_many(
                 queries, k=args.k, mode=mode, align_type=atype, bit_width=bw
             )
@@ -171,7 +153,7 @@ def cmd_search(args) -> int:
     query = ctx.init_sequence_fasta(args.query)
     fn = ctx.sw_align if args.algo == "sw" else ctx.nw_align
     t0 = time.perf_counter()
-    with _trace(args.xprof):
+    with trace(args.xprof):
         hits = fn(query, k=args.k, bit_width=bw, mode=mode)
     dt = time.perf_counter() - t0
     if args.json:

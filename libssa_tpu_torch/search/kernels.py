@@ -189,7 +189,8 @@ def stage_sweep(
         s, f = _flat(parts)
         ids = torch.cat([ids.reshape(-1) for _, _, ids in stacks])
         valid = ids >= 0
-        s_m = torch.where(valid, s, NEG)
+        # The int64 lane's padding sorts below every int64 score.
+        s_m = torch.where(valid, s, NEG if cdtype == "int32" else -(2**63) + 1)
         i_m = torch.where(valid, ids, INVALID)
         order = _lexsort([-s_m, i_m])
         n_lanes = s.numel()

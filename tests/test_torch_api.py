@@ -192,13 +192,52 @@ def test_align_pair_score_matches(tmp_path, algo):
         assert st_a.cells == len(subject) * sum(len(c) for _, c in q_port.sequences)
 
 
-def test_later_slices_raise_not_implemented(tmp_path):
-    _, port = _contexts(tmp_path)
-    q = port.init_sequence_fasta(_fixture(tmp_path, "query_prot.fas"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+def test_set_device_count_sharded_api(tmp_path):
+    """set_device_count(2) on a "cpu" context: SW, NW and translated hits
+    equal the JAX package's mesh context's and the port's single-device
+    context's; more devices than are visible raise RuntimeError."""
+    import os
+
+    from libssa_tpu_torch.parallel.sharded import ShardedSearchEngine
+
+    def run(**kw):
+        ref, port = _contexts(tmp_path, **kw)
+        single = _contexts(tmp_path, **kw)[1]
+        ref.set_device_count(2)
         port.set_device_count(2)
+        return ref, port, single
+
+    qfile = _fixture(tmp_path, "query_prot.fas")
+    ref, port, single = run()
+    qs = [c.init_sequence_fasta(qfile) for c in (ref, port, single)]
+    for fn, bw in (("sw_align", BitWidth.EXACT), ("nw_align", BitWidth.EXACT),
+                   ("sw_align", BitWidth.BIT8)):
+        want = getattr(ref, fn)(qs[0], 5, _ref(bw), _ref(ComputeMode.ALIGNMENT))
+        got = getattr(port, fn)(qs[1], 5, bw, ComputeMode.ALIGNMENT)
+        _same(got, want)
+        _same(got, getattr(single, fn)(qs[2], 5, bw, ComputeMode.ALIGNMENT))
+    assert isinstance(port._engine, ShardedSearchEngine) and port._engine.n_devices == 2
+
+    # Translated: a nucleotide query, both strands, against the protein DB.
+    ref, port, single = run(symtype=SymType.NUCLEOTIDE, strands=Strand.BOTH,
+                            db_symtype=SymType.AMINOACID)
+    seq = "ATGGCTGCTTGGAAACAAACCGAAATG"
+    hits = [c.sw_align(c.init_sequence_fasta(seq), 4, *args) for c, args in (
+        (ref, (_ref(BitWidth.EXACT), _ref(ComputeMode.SCORE))),
+        (port, (BitWidth.EXACT, ComputeMode.SCORE)),
+        (single, (BitWidth.EXACT, ComputeMode.SCORE)))]
+    _same(hits[1], hits[0])
+    _same(hits[1], hits[2])
+
+    q = port.init_sequence_fasta(seq)
+    port.set_device_count(0)  # every device: the CPU counts once a core
+    _same(port.sw_align(q, 4), hits[2])
+    assert port._engine.n_devices == (os.cpu_count() or 1)
+    port.set_device_count((os.cpu_count() or 1) + 1)
+    with pytest.raises(RuntimeError, match="devices visible"):
+        port.sw_align(q, 4)
     port.set_device_count(1)
-    assert len(port.sw_align(q, 3)) == 3
+    assert not isinstance(port._get_engine(), ShardedSearchEngine)
 
 
 @pytest.fixture
@@ -290,8 +329,10 @@ def _cli_json(main, argv, capsys):
 
 
 @pytest.mark.parametrize("extra", [[], ["--algo", "nw", "--bit-width", "8", "--align"],
-                                   ["--all-queries"]],
-                         ids=["sw", "nw-bit8-align", "all-queries"])
+                                   ["--all-queries"], ["--devices", "2", "--align"],
+                                   ["--devices", "2", "--all-queries"]],
+                         ids=["sw", "nw-bit8-align", "all-queries", "devices2",
+                              "devices2-all-queries"])
 def test_cli_search_matches(tmp_path, capsys, extra):
     db = _fixture(tmp_path, "proteins.fas")
     query = _fixture(tmp_path, "query_prot.fas")

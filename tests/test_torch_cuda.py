@@ -184,6 +184,39 @@ def test_engine_on_card_equals_cpu(dev):
         assert (gc, gr) == (wc, wr)
 
 
+def test_sharded_on_card_equals_single_device(dev):
+    """Two shards on the card: every search path's hit lists and stats equal
+    the single-device engine's on the card; each shard sweep launches K1 once
+    a width group it holds, and nothing is re-queued."""
+    from libssa_tpu_torch.parallel.sharded import ShardedSearchEngine, make_db_mesh
+
+    rng = np.random.default_rng(9)
+    seqs = [rng.integers(0, 20, int(rng.integers(20, 400))).astype(np.uint8)
+            for _ in range(301)]
+    seqs[8] = seqs[3].copy()  # a tie across the shards
+    db = SequenceDB.from_sequences([f"s{i}" for i in range(301)], seqs, SymType.AMINOACID)
+    params = SearchParams(batch_size=64)
+    single = SearchEngine(db, B62, 10, 1, params, device=dev)
+    sharded = ShardedSearchEngine(db, B62, 10, 1, make_db_mesh(devices=[dev, dev]), params)
+    queries = [seqs[3][:90], rng.integers(0, 20, 40).astype(np.uint8)]
+    width_groups = sum(len(g[2]) for g in sharded._device_groups())
+    for local in (True, False):
+        for bw in (BitWidth.EXACT, BitWidth.BIT8, BitWidth.BIT64):
+            st_m, st_s = SearchStats(), SearchStats()
+            before = interseq_cuda.launches
+            got = sharded.search(queries[0], 8, local, bw, st_m)
+            assert interseq_cuda.launches - before == width_groups
+            np.testing.assert_equal(got, single.search(queries[0], 8, local, bw, st_s))
+            assert (st_m.cells, st_m.rescored) == (st_s.cells, st_s.rescored)
+        st_m, st_s = SearchStats(), SearchStats()
+        np.testing.assert_equal(sharded.search_many(queries, 6, local, st_m, BitWidth.BIT16),
+                                single.search_many(queries, 6, local, st_s, BitWidth.BIT16))
+        assert (st_m.cells, st_m.rescored) == (st_s.cells, st_s.rescored)
+        np.testing.assert_equal(sharded.search_reduced(queries, None, 5, local),
+                                single.search_reduced(queries, None, 5, local))
+    assert sharded.requeued_chunks == 0
+
+
 K3_WARPS = (None, 1, 2, 3, 4, 8)  # None: the wrapper's choice
 
 

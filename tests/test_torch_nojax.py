@@ -128,6 +128,29 @@ print(json.dumps({{"hits": [sw, float(tile.max()), int(chain.max()), *k1v]}}))
 """
 
 
+_SHARDED = """
+import json
+import torch
+torch.set_num_threads(1)
+import libssa_tpu_torch.api as ssa
+from libssa_tpu_torch import cli
+from libssa_tpu_torch.parallel.sharded import ShardedSearchEngine
+
+ctx = ssa.SSAContext(device="cpu")
+ctx.init_score_matrix("BLOSUM62")
+ctx.init_gap_penalties(10, 1)
+ctx.init_db_fasta({db!r})
+ctx.set_device_count(2)
+q = ctx.init_sequence_fasta({query!r})
+hits = ctx.sw_align(q, 5)
+assert isinstance(ctx._engine, ShardedSearchEngine)
+rc = cli.main(["search", "--db", {db!r}, "--query", {query!r}, "-k", "3",
+               "--devices", "2", "--device", "cpu"])
+assert rc == 0, rc
+print(json.dumps({{"hits": [[h.seq_id, h.score] for h in hits]}}))
+"""
+
+
 def _run(body: str, tmp_path) -> subprocess.CompletedProcess:
     db = tmp_path / "proteins.fas"  # a private copy: packed-DB caches never race
     query = tmp_path / "query_prot.fas"
@@ -142,14 +165,14 @@ def _run(body: str, tmp_path) -> subprocess.CompletedProcess:
     )
 
 
-@pytest.mark.parametrize("entry", ["api", "cli", "score", "traceback", "probes"])
+@pytest.mark.parametrize("entry", ["api", "cli", "score", "traceback", "probes", "sharded"])
 def test_port_runs_without_jax(tmp_path, entry):
     """Search (API, CLI), the 1-vs-1 score path (align_pair SCORE,
     ``pair --score-only``, pair_scores_batch), the linear-space traceback
-    (ALIGNMENT-mode align_pair above MATRIX_CELL_LIMIT) and the probes'
-    plain versions."""
+    (ALIGNMENT-mode align_pair above MATRIX_CELL_LIMIT), the probes' plain
+    versions and sharded search (API and CLI over 2 CPU shards)."""
     bodies = {"api": _API, "cli": _CLI, "score": _SCORE, "traceback": _TRACEBACK,
-              "probes": _PROBES}
+              "probes": _PROBES, "sharded": _SHARDED}
     proc = _run(bodies[entry], tmp_path)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
