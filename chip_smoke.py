@@ -92,7 +92,20 @@ Drives the port's main path — database search through ``SearchEngine`` and
     ``search_many`` over a smaller flagship database. Every hit list equals
     the single-device engine's; walls beside the single-device engine's,
     the host time of the plan and of ``SequenceDB.shard``, K1's launches and
-    ``requeued_chunks`` (which must be 0).
+    ``requeued_chunks`` (which must be 0);
+15. the ring (``libssa_tpu_torch/parallel/ring.py`` and ``ring_mm.py``, K2
+    on every shard's tiles, one launch a staircase phase): (a)
+    ``ring_score`` on phase 8b's 100,000 x 100,000 ACGT pair, SW and NW, on
+    meshes of 1, 2 and 4 shards of the one card, each equal to K3's score,
+    its K2 launches equal to its phases, and SW at 2 shards at each RB of
+    ``RING_RBS``; (b) ``ring_align_pair`` on 11b's 100,000 x 100,000
+    protein pair, SW and NW, 2 shards, ``ring_min_cells`` 2**29 (levels 0-2
+    on the ring), equal to ``align_pair_linear`` on the card field for
+    field; (c) two gloo ranks of one shard each and (d) one NCCL rank of two
+    shards, subprocesses on the card, run ``ring_score`` and
+    ``ring_align_pair`` on 8a's 16,384^2 pair (``ring_min_cells`` 2**26),
+    equal to one process's; with the walls, K2's launches and each call's
+    phases.
 
 The second-to-last line is a JSON object with each kernel's launches by
 the main path, its largest difference from the plain version, its time,
@@ -1788,6 +1801,211 @@ def phase14(dev, eng):
     return total_launches
 
 
+# -- phase 15 ----------------------------------------------------------------
+
+RING_SHARDS = (1, 2, 4)  # phase 15a: shards of the one card
+RING_RBS = (1 << 14, 1 << 15, 1 << 16, 1 << 17)  # phase 15a: RB at 2 shards, SW
+RING_MIN_B = 1 << 29  # phase 15b: levels 0-2 of the 100,000^2 pair divide on the ring
+RING_MIN_C = 1 << 26  # phases 15c and 15d: the 16,384^2 pair's top levels on the ring
+
+
+def _tb_row(tb) -> list:
+    """A Traceback as JSON: its fields, the ops string as its length and
+    sha256."""
+    import hashlib
+
+    return [tb.score, tb.q_begin, tb.q_end, tb.s_begin, tb.s_end, len(tb.cigar),
+            hashlib.sha256(tb.cigar.encode()).hexdigest()]
+
+
+def ring_calls(mesh, q, s, mat, go, ge, min_cells):
+    """ring_score and ring_align_pair, SW and NW, of one pair on ``mesh``:
+    ``{name: (result, wall s, K2 launches, phases)}``."""
+    import torch
+
+    from libssa_tpu_torch.ops import ring_block_cuda
+    from libssa_tpu_torch.parallel import ring
+    from libssa_tpu_torch.parallel.ring_mm import ring_align_pair
+
+    out = {}
+    for local in (True, False):
+        mode = "SW" if local else "NW"
+        for name, fn in ((f"score {mode}", lambda: ring.ring_score(
+                q, s, mat, go, ge, local, mesh)),
+                         (f"align {mode}", lambda: _tb_row(ring_align_pair(
+                             q, s, mat, go, ge, local, mesh=mesh, ring_min_cells=min_cells)))):
+            launches, ring.phases = ring_block_cuda.launches, 0
+            t0 = time.perf_counter()
+            got = fn()
+            torch.cuda.synchronize()
+            out[name] = (got, time.perf_counter() - t0, ring_block_cuda.launches - launches,
+                         ring.phases)
+    return out
+
+
+def ring_rank_main(backend: str, rank: int, world: int, port: int, shards: int) -> int:
+    """One rank of phase 15's ``torch.distributed`` job: ``shards`` shards
+    on the card; prints one JSON line with ``ring_calls`` on 8a's pair."""
+    import torch
+    import torch.distributed as dist
+
+    from libssa_tpu_torch import matrices
+    from libssa_tpu_torch.parallel import ring
+    from libssa_tpu_torch.parallel.sharded import make_db_mesh
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        _, _, _, q, s, _ = pair_cases()[0]
+        mesh = make_db_mesh(devices=[dev] * shards)
+        b62 = matrices.builtin("BLOSUM62").padded()
+        ring.ring_score(q[:1024], s[:1024], b62, 11, 1, True, mesh)  # warms the process
+        got = ring_calls(mesh, q, s, b62, 11, 1, RING_MIN_C)
+        print(json.dumps({"rank": rank, "backend": backend, "world": world,
+                          "shards": mesh.size, "calls": got}), flush=True)
+        return 0
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ring_ranks(backend: str, world: int, shards: int) -> list[dict]:
+    """Phase 15's ``torch.distributed`` job: ``world`` subprocess ranks of
+    ``shards`` shards, each killed if it outlives ``RANK_TIMEOUT``; their
+    JSON lines."""
+    import subprocess as sp
+
+    port = _free_port()
+    procs = [sp.Popen([sys.executable, os.path.abspath(__file__), "ring", backend, str(r),
+                       str(world), str(port), str(shards)],
+                      stdout=sp.PIPE, stderr=sp.PIPE, text=True)
+             for r in range(world)]
+    out = []
+    try:
+        for p in procs:
+            try:
+                stdout, stderr = p.communicate(timeout=RANK_TIMEOUT)
+            except sp.TimeoutExpired:
+                fail(15, f"a {backend} ring rank did not finish in {RANK_TIMEOUT} s")
+            if p.returncode != 0:
+                fail(15, f"a {backend} ring rank failed (rc {p.returncode}):\n{stdout}\n"
+                         f"{stderr[-3000:]}")
+            out.append(json.loads(stdout.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return out
+
+
+def phase15(dev) -> int:
+    """The ring (``parallel/ring.py``, ``parallel/ring_mm.py``) on the card;
+    returns the K2 launches of its in-process calls."""
+    import torch
+
+    from libssa_tpu_torch import matrices
+    from libssa_tpu_torch.experiments.k2_ab import trace_pair
+    from libssa_tpu_torch.ops import longpair, ring_block_cuda
+    from libssa_tpu_torch.parallel import ring
+    from libssa_tpu_torch.parallel.ring_mm import ring_align_pair
+    from libssa_tpu_torch.parallel.sharded import make_db_mesh
+    from libssa_tpu_torch.search import leafnative
+    from libssa_tpu_torch.search.hirschberg import align_pair_linear
+    from libssa_tpu_torch.search.manager import SearchStats
+
+    t_phase = time.perf_counter()
+    if not leafnative.native_available():  # built before any wall is taken
+        fail(15, "the native leaf solver (csrc/leafalign.cpp) did not build")
+    nt = matrices.constant_scoring(5, -4).padded()
+    b62 = matrices.builtin("BLOSUM62").padded()
+    _, _, _, q8a, s8a, _ = pair_cases()[0]
+    _, _, _, q8b, s8b, _ = pair_cases()[1]
+    qb, sb = trace_pair()
+
+    def wall(fn):
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0
+
+    # What the ring is held to, outside the counted run: K3's scores and
+    # align_pair_linear's alignments on the card.
+    k3, linear = {}, {}
+    for local in (True, False):
+        wall(lambda: longpair.longpair_score(q8b, s8b, nt, 10, 1, local, device=dev))
+        k3[local] = wall(lambda: longpair.longpair_score(q8b, s8b, nt, 10, 1, local, device=dev))
+        linear[local] = wall(lambda: align_pair_linear(qb, sb, b62, 11, 1, local, device=dev))
+
+    # The main path: counts from zero, read right after.
+    ring_block_cuda.launches = 0
+    lines = []
+    for D in RING_SHARDS:
+        mesh = make_db_mesh(devices=[dev] * D)
+        for local in (True, False):
+            runs = []
+            for _ in range(2):  # the first call uploads the pair and warms the path
+                launches, ring.phases = ring_block_cuda.launches, 0
+                got, t = wall(lambda: ring.ring_score(q8b, s8b, nt, 10, 1, local, mesh))
+                runs.append((t, ring_block_cuda.launches - launches, ring.phases))
+                if got != k3[local][0]:
+                    fail(15, f"15a {D} shards {'SW' if local else 'NW'}: ring score {got} != "
+                             f"K3's {k3[local][0]}")
+            if runs[1][1] != runs[1][2]:
+                fail(15, f"15a {D} shards: {runs[1][1]} K2 launches over {runs[1][2]} phases")
+            lines.append(f"15a {D} shard{'s' * (D > 1)} {'SW' if local else 'NW'} "
+                         f"{runs[1][0]:.4f} (first {runs[0][0]:.4f}), K2 launches a call "
+                         f"{runs[1][1]}, phases {runs[1][2]}")
+    mesh = make_db_mesh(devices=[dev, dev])
+    sweep = []
+    for RB in RING_RBS:
+        wall(lambda: ring.ring_score(q8b, s8b, nt, 10, 1, True, mesh, RB))
+        ring.phases = 0
+        got, t = wall(lambda: ring.ring_score(q8b, s8b, nt, 10, 1, True, mesh, RB))
+        if got != k3[True][0]:
+            fail(15, f"15a RB {RB}: ring score {got} != K3's {k3[True][0]}")
+        sweep.append(f"{RB} {t:.4f} ({ring.phases} phases)")
+    lines.append("15a 2 shards SW by RB: " + ", ".join(sweep))
+    lines.append(f"15a K3 on the card SW {k3[True][1]:.4f}, NW {k3[False][1]:.4f}")
+    for local in (True, False):
+        st = SearchStats()
+        launches, ring.phases = ring_block_cuda.launches, 0
+        got, t = wall(lambda: ring_align_pair(qb, sb, b62, 11, 1, local, mesh=mesh,
+                                              ring_min_cells=RING_MIN_B, stats=st))
+        want, t_lin = linear[local]
+        if got != want:
+            fail(15, f"15b {'SW' if local else 'NW'}: the ring's traceback differs from "
+                     f"align_pair_linear's (score {got.score} vs {want.score})")
+        lines.append(f"15b 2 shards {'SW' if local else 'NW'} {t:.3f} against "
+                     f"align_pair_linear {t_lin:.3f}: equal, score {got.score}, "
+                     f"{len(got.cigar)} ops; K2 launches {ring_block_cuda.launches - launches}"
+                     f", {ring.phases} phases over {st.aligner_dispatches - st.aligner_levels} "
+                     f"ring calls, hand-off levels {st.aligner_levels}, device "
+                     f"{st.aligner_device_seconds:.3f} s")
+    # One process of 2 shards: what the ranks must give.
+    want = ring_calls(mesh, q8a, s8a, b62, 11, 1, RING_MIN_C)
+    launches = ring_block_cuda.launches
+    ranks = run_ring_ranks("gloo", 2, 1) + run_ring_ranks("nccl", 1, 2)
+    for r in ranks:
+        for name, (got, t, k2, ph) in r["calls"].items():
+            if got != want[name][0]:
+                fail(15, f"15{'c' if r['backend'] == 'gloo' else 'd'} {r['backend']} rank "
+                         f"{r['rank']} {name}: {got} != one process's {want[name][0]}")
+    lines.append("15c/d 16,384^2 one process, 2 shards: " + ", ".join(
+        f"{k} {t:.3f} ({k2} K2, {ph} phases)" for k, (_, t, k2, ph) in want.items()))
+    for r in ranks:
+        lines.append(f"15{'c' if r['backend'] == 'gloo' else 'd'} {r['backend']} rank "
+                     f"{r['rank']}/{r['world']} (a mesh of {r['shards']}): " + ", ".join(
+                         f"{k} {t:.3f} ({k2} K2, {ph} phases)"
+                         for k, (_, t, k2, ph) in r["calls"].items()))
+    say(f"phase 15 ring, {card_line()}, walls s: " + "; ".join(lines)
+        + f"; every ring score equals K3's and every traceback align_pair_linear's or the "
+        f"one process's; K2 launches {launches}; NCCL between two ranks not run (one card); "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def bound_ms(cells: int, cell: tuple[float, float], nbytes: int) -> tuple[float, str]:
     """The least time for ``cells`` DP cells of ``cell`` = (int32 adds, DPX)
     each, in ms, and what bounds it."""
@@ -1818,11 +2036,12 @@ def main() -> int:
     t_k1, t_plain = phase6(dev, eng)["kernel"]
     launches += phase14(dev, eng)
     del eng
+    ring_launches = phase15(dev)
     err7 = phase7(dev)
     k3_launches, err8, (t_k3, t_k3_plain) = phase8(dev)
     phase9(dev)
     err10, t_k2, t_k2_plain, b_k2 = phase10(dev)
-    k2_launches = phase11(dev)
+    k2_launches = phase11(dev) + ring_launches
     probe_entries = phase12(dev)
     variant_entries = phase13(dev)
 
@@ -1860,7 +2079,7 @@ def main() -> int:
         "route": "cuda",
         "source": K2_SOURCE,
         "replaces": K2_REPLACES,
-        "launches": k2_launches,
+        "launches": k2_launches,  # phases 11 and 15
         "max_abs_err": err10,
         "ms": t_k2,
         "plain_ms": t_k2_plain,
@@ -1879,4 +2098,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["rank"]:  # one rank of phase 14's job
         sys.exit(rank_main(sys.argv[2], *map(int, sys.argv[3:7])))
+    if sys.argv[1:2] == ["ring"]:  # one rank of phase 15's job
+        sys.exit(ring_rank_main(sys.argv[2], *map(int, sys.argv[3:7])))
     sys.exit(main())

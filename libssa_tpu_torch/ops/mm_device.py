@@ -47,6 +47,13 @@ from .longpair import score_bound
 INF64 = 2**62
 
 
+def open_edge(opens, k: torch.Tensor, R: int) -> torch.Tensor:
+    """H along an NW DP's first column or first row, at index ``k``: 0 at
+    k = 0, else -(opens + R k). The left column H[i][0] opens at ``tb``
+    (k = i), the top row H[0][j] at Q - R (k = j)."""
+    return torch.where(k == 0, 0, -(opens + R * k))
+
+
 def _segments(lengths: np.ndarray, dev) -> tuple[torch.Tensor, torch.Tensor]:
     """(segment id, index within the segment) of every element of a flat
     array of segments with ``lengths``, built on ``dev``."""
@@ -124,9 +131,9 @@ class DevicePair:
             topH = torch.zeros(len(j), dtype=dt, device=dev)
         else:
             tb = torch.as_tensor(tbs, dtype=torch.int64).to(dev)
-            leftH = torch.where(i == 0, 0, -(tb[seg] + R * i)).to(dt)  # H[i][0]
-            leftE = (-(tb[eseg] + R * (ie + 1))).to(dt)
-            topH = (-(Q + R * j)).to(dt)  # H[0][j+1]
+            leftH = open_edge(tb[seg], i, R).to(dt)  # H[i][0]
+            leftE = open_edge(tb[eseg], ie + 1, R).to(dt)
+            topH = open_edge(Q - R, j + 1, R).to(dt)  # H[0][j+1]
         leftE = leftE - Q + R  # no gap state on either boundary
         return leftH, leftE, topH, topH - Q + R
 

@@ -46,12 +46,14 @@ PAD_SCORE = -(2**63) + 1  # a gathered list's padding: below every int64 score
 @dataclass(frozen=True)
 class DBMesh:
     """The database axis: ``size`` shards numbered rank-major, the shards
-    this process owns (``local``: global shard index -> device) and the
-    process group (None in one process)."""
+    this process owns (``local``: global shard index -> device), the
+    process group (None in one process) and each rank's count of shards
+    (``rank_shards``, in rank order)."""
 
     size: int
     local: dict
     group: object = None
+    rank_shards: tuple = ()
 
 
 def _gather(row: np.ndarray, group, device) -> np.ndarray:
@@ -105,13 +107,14 @@ def make_db_mesh(n_devices: int | None = None, devices=None, group=None) -> DBMe
             if not 1 <= n_devices <= len(devices):
                 raise ValueError(f"n_devices={n_devices}: {len(devices)} devices given")
             devices = devices[:n_devices]
-        return DBMesh(len(devices), dict(enumerate(devices)))
+        return DBMesh(len(devices), dict(enumerate(devices)), None, (len(devices),))
     counts = _gather(np.array([len(devices)]), group, devices[0])[:, 0]
     total = int(counts.sum())
     if n_devices is not None and n_devices != total:
         raise ValueError(f"n_devices={n_devices}, but the ranks own {total} shards")
     first = int(counts[: dist.get_rank(group)].sum())
-    return DBMesh(total, {first + j: d for j, d in enumerate(devices)}, group)
+    return DBMesh(total, {first + j: d for j, d in enumerate(devices)}, group,
+                  tuple(int(c) for c in counts))
 
 
 def _pad(a, k: int, fill) -> np.ndarray:

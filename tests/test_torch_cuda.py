@@ -217,6 +217,37 @@ def test_sharded_on_card_equals_single_device(dev):
     assert sharded.requeued_chunks == 0
 
 
+@pytest.mark.parametrize("local", [True, False], ids=["sw", "nw"])
+def test_ring_on_card_equals_k3_and_align_pair_linear(dev, local, monkeypatch):
+    """The ring on 2 shards of the card: ring_score equals K3's score, one
+    K2 launch a staircase phase, and ring_align_pair (ring divides at the
+    top, the hand-off's levels on the card's DevicePair) equals
+    align_pair_linear on the card, ops string included."""
+    from libssa_tpu_torch.parallel import ring
+    from libssa_tpu_torch.parallel.ring_mm import ring_align_pair
+    from libssa_tpu_torch.parallel.sharded import make_db_mesh
+
+    monkeypatch.setattr(hirschberg, "DEVICE_MIN_CELLS", 1 << 16)
+    monkeypatch.setattr(hirschberg, "LEAF_CELLS", 1 << 14)
+
+    rng = np.random.default_rng(81 + local)
+    q = rng.integers(0, 20, 3000).astype(np.uint8)
+    s = rng.integers(0, 20, 2500).astype(np.uint8)
+    s[300:1800] = q[700:2200]
+    mesh = make_db_mesh(devices=[dev, dev])
+    want = longpair.longpair_score(q, s, PADDED, 11, 1, local, device=dev)
+    for RB in (1000, ring.RB_DEFAULT):
+        before, ring.phases = ring_block_cuda.launches, 0
+        assert ring.ring_score(q, s, PADDED, 11, 1, local, mesh, RB) == want
+        assert ring_block_cuda.launches - before == ring.phases == -(-3000 // RB) + 1
+    st = SearchStats()
+    got = ring_align_pair(q, s, PADDED, 11, 1, local, mesh=mesh, RB=1000,
+                          ring_min_cells=1 << 19, stats=st)
+    assert got == hirschberg.align_pair_linear(q, s, PADDED, 11, 1, local, device=dev)
+    assert got.score == want and st.aligner_levels > 0
+    assert st.aligner_dispatches >= st.aligner_levels + 3
+
+
 K3_WARPS = (None, 1, 2, 3, 4, 8)  # None: the wrapper's choice
 
 

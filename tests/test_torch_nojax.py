@@ -151,6 +151,28 @@ print(json.dumps({{"hits": [[h.seq_id, h.score] for h in hits]}}))
 """
 
 
+_RING = """
+import json
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from libssa_tpu_torch import matrices
+from libssa_tpu_torch.parallel.ring import ring_score
+from libssa_tpu_torch.parallel.ring_mm import ring_align_pair
+from libssa_tpu_torch.parallel.sharded import make_db_mesh
+
+b62 = matrices.builtin("BLOSUM62").padded()
+rng = np.random.default_rng(7)
+q = rng.integers(0, 20, 60).astype(np.uint8)
+s = rng.integers(0, 20, 90).astype(np.uint8)
+mesh = make_db_mesh(devices=["cpu"] * 3)
+scores = [ring_score(q, s, b62, 10, 1, local, mesh, RB=16) for local in (True, False)]
+tb = [ring_align_pair(q, s, b62, 10, 1, local, mesh=mesh, RB=16, ring_min_cells=1000)
+      for local in (True, False)]
+print(json.dumps({{"hits": [*scores, *[[t.score, t.cigar] for t in tb]]}}))
+"""
+
+
 def _run(body: str, tmp_path) -> subprocess.CompletedProcess:
     db = tmp_path / "proteins.fas"  # a private copy: packed-DB caches never race
     query = tmp_path / "query_prot.fas"
@@ -165,14 +187,16 @@ def _run(body: str, tmp_path) -> subprocess.CompletedProcess:
     )
 
 
-@pytest.mark.parametrize("entry", ["api", "cli", "score", "traceback", "probes", "sharded"])
+@pytest.mark.parametrize("entry", ["api", "cli", "score", "traceback", "probes", "sharded",
+                                   "ring"])
 def test_port_runs_without_jax(tmp_path, entry):
     """Search (API, CLI), the 1-vs-1 score path (align_pair SCORE,
     ``pair --score-only``, pair_scores_batch), the linear-space traceback
     (ALIGNMENT-mode align_pair above MATRIX_CELL_LIMIT), the probes' plain
-    versions and sharded search (API and CLI over 2 CPU shards)."""
+    versions, sharded search (API and CLI over 2 CPU shards) and the ring
+    (``ring_score`` and ``ring_align_pair`` over 3 CPU shards)."""
     bodies = {"api": _API, "cli": _CLI, "score": _SCORE, "traceback": _TRACEBACK,
-              "probes": _PROBES, "sharded": _SHARDED}
+              "probes": _PROBES, "sharded": _SHARDED, "ring": _RING}
     proc = _run(bodies[entry], tmp_path)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
