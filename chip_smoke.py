@@ -105,7 +105,31 @@ Drives the port's main path — database search through ``SearchEngine`` and
     shards, subprocesses on the card, run ``ring_score`` and
     ``ring_align_pair`` on 8a's 16,384^2 pair (``ring_min_cells`` 2**26),
     equal to one process's; with the walls, K2's launches and each call's
-    phases.
+    phases;
+16. K1, K2 and K3 over drawn inputs (``numpy.random.default_rng`` from
+    fixed seeds, a fixed count of draws a part; any difference prints the
+    part, seed, draw and its parameters and fails): (a) K1 on the card
+    against the same wrapper on the CPU (the plain version): 1-8 queries
+    of 1-3,000 rows, some shorter than their profiles, 1-600 lanes of
+    ragged subjects up to 700 columns, five matrices, Q >= R >= 0, SW/NW,
+    track_range, int32/int64, warps None or 1-16; (b) K2 against its plain
+    version, three launches a draw: 1-200 tiles of 1-400 x 1-600 at
+    offsets into shared code buffers, with SW/NW open edges and edges
+    carried out of neighbouring tiles, int32/int64, every (rows, warps)
+    that fits; (c) K3 against its plain version at every (rows, warps) that
+    fits, int32 and int64, three launches each, m and n 1-5,000 weighted to
+    the stripe, group and segment edges; (d) one ACGT pair of 524,288 x
+    4,096, 1,024 K3 groups (past one wave of resident blocks): K3, K2 as one
+    tile, K1 through ``pair_scores_batch`` and the plain sweep of the
+    transposed pair on the card, SW and NW, all equal, with K3's and K2's
+    times; (e) ``SSAContext(device="cuda")`` against ``device="cpu"`` on
+    drawn DBs (1-60 subjects, ambiguity codes) and queries: ``sw_align``,
+    ``nw_align`` and ``align_many`` at every ``BitWidth``, some sharded
+    (``set_device_count``), and ``align_pair`` SCORE and ALIGNMENT on pairs
+    up to 6,000 x 6,000 (K2's levels past 16M cells), hit lists equal field
+    by field; (f) ``examples/torch_database_search.py`` and
+    ``examples/torch_genome_pair.py`` as subprocesses, exit 0 with every
+    section's line.
 
 The second-to-last line is a JSON object with each kernel's launches by
 the main path, its largest difference from the plain version, its time,
@@ -2006,6 +2030,420 @@ def phase15(dev) -> int:
     return launches
 
 
+# -- phase 16 ----------------------------------------------------------------
+
+# Phase 16: K1, K2 and K3 over drawn inputs. Each part draws from its own
+# seed (DRAW_SEED + the part's index), so a failure reproduces from the seed
+# and the draw's index it prints. The counts are fixed, sized on one H100
+# so that the phase takes about 120 s.
+DRAW_SEED = 1600
+DRAWS = {"a": 120, "b": 50, "c": 300, "e": 28}
+DRAW_REPEATS = 3  # launches of each (b) and (c) draw: a racy hand-off shows only some of the time
+K1_DRAW_CELLS = 5 * 10**7  # (a): pairs x rows x columns x lanes at most, for the plain version's time
+# Sizes at the kernels' edges: a K1 strip is 32 rows (16 in int64), a K2/K3
+# stripe 32 x 4 or 32 x 8 rows, a group 4 stripes, a segment 8 columns.
+DRAW_EDGES = (1, 2, 3, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129, 255,
+              256, 257, 511, 512, 513)
+K3_DRAW_EDGES = (1, 2, 3, 7, 8, 9, 31, 32, 33, 127, 128, 129, 511, 512, 513)
+WAVE_M, WAVE_N = 524_288, 4_096  # (d): 1,024 K3 groups of 4 warps x 4 rows x 32 bands
+PAIR_DRAW_MAX = 6_000  # (e): align_pair's pairs, up to 36M cells
+
+
+def draw_size(rng, hi: int, edges=DRAW_EDGES, p_edge: float = 0.3) -> int:
+    """1 .. ``hi``: an edge with probability ``p_edge``, else log-uniform."""
+    if rng.random() < p_edge:
+        return int(rng.choice([e for e in edges if e <= hi]))
+    return max(1, min(hi, int(np.exp(rng.uniform(0, np.log(hi + 1))))))
+
+
+def draw_gaps(rng) -> tuple[int, int]:
+    """Gotoh's (Q, R) with Q >= R >= 0, R = 0 and Q = R among them."""
+    R = int(rng.integers(0, 5))
+    return int(rng.choice([R, R + 1, R + int(rng.integers(2, 16))])), R
+
+
+def draw_matrices():
+    """The matrices the draws take, name -> (padded table, codes drawn)."""
+    from libssa_tpu_torch import matrices
+    from libssa_tpu_torch.constants import SymType
+
+    out = {name: (matrices.builtin(name).padded(), 24)
+           for name in ("BLOSUM62", "BLOSUM45", "BLOSUM80")}
+    out["const 3/-2"] = (matrices.constant_scoring(3, -2, SymType.AMINOACID).padded(), 24)
+    out["ACGT 5/-4"] = (matrices.constant_scoring(5, -4).padded(), 4)
+    return out
+
+
+def draw_fail(part: str, seed: int, index: int, what: str):
+    fail(16, f"16{part} seed {seed} draw {index}: {what}")
+
+
+def phase16a(dev) -> int:
+    """K1 on the card against the same wrapper on the CPU (the plain
+    version); returns the draws."""
+    import torch
+
+    from libssa_tpu_torch.io.db import PAD_CODE
+    from libssa_tpu_torch.ops import interseq_cuda
+    from libssa_tpu_torch.ops.scoring import make_padded_profile
+
+    mats = draw_matrices()
+    seed = DRAW_SEED + 1
+    rng = np.random.default_rng(seed)
+    for i in range(DRAWS["a"]):
+        while True:  # the plain version's time bounds the draw
+            nq, g = int(rng.integers(1, 9)), int(rng.integers(1, 4))
+            P = int(rng.integers(1, nq * g + 1))
+            m, B, n_pad = draw_size(rng, 3000), draw_size(rng, 600), draw_size(rng, 700)
+            if P * m * n_pad * B <= K1_DRAW_CELLS:
+                break
+        name = str(rng.choice(sorted(mats)))
+        mat, hi = mats[name]
+        m_reals = np.where(rng.random(nq) < 0.5, m, rng.integers(1, m + 1, nq)).astype(np.int32)
+        profs = np.stack([make_padded_profile(rng.integers(0, hi, mr).astype(np.uint8), mat, m)
+                          for mr in m_reals]).astype(np.int32)
+        lengths = rng.integers(0, n_pad + 1, (g, B)).astype(np.int32)
+        lengths[:, rng.integers(0, B)] = n_pad
+        codes = rng.integers(0, hi, (g, n_pad, B)).astype(np.int8)
+        codes[np.arange(n_pad)[None, :, None] >= lengths[:, None, :]] = PAD_CODE
+        iq = rng.integers(0, nq, P).astype(np.int32)
+        ic = rng.integers(0, g, P).astype(np.int32)
+        Q, R = draw_gaps(rng)
+        local, track = bool(rng.integers(2)), bool(rng.integers(2))
+        dtype = str(rng.choice(["int32", "int64"]))
+        warps = rng.choice([None, *range(1, 17)])
+        warps = None if warps is None else int(warps)
+        cpu = [torch.as_tensor(a) for a in (profs, codes, lengths, iq, ic, m_reals)]
+        kw = dict(local=local, track_range=track, dtype=dtype)
+        want = interseq_cuda.interseq_pairs_cuda(*cpu, Q, R, **kw)
+        got = interseq_cuda.interseq_pairs_cuda(*(t.to(dev) for t in cpu), Q, R, warps=warps,
+                                                **kw)
+        torch.cuda.synchronize()
+        for out, a, b in zip(("scores", "hi", "lo"), got, want):
+            if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+                draw_fail("a", seed, i, f"K1 {out} differ: nq={nq} m={m} m_reals="
+                          f"{m_reals.tolist()} g={g} n_pad={n_pad} B={B} P={P} {name} "
+                          f"Q={Q} R={R} local={local} track={track} {dtype} warps={warps}")
+    return DRAWS["a"]
+
+
+def draw_edges(rng, q, s, hi, mat, Q, R, local, dt, kind):
+    """A tile's boundaries (leftH, leftE, topH, topF), CPU tensors, as K2's
+    callers make them: SW's zeros or NW's open edges
+    (``mm_device.open_edge``) ("open"), or the edges carried out of a tile
+    to its left and one above it, each run by the plain version from open
+    edges ("carried"); their codes are drawn below ``hi``."""
+    import torch
+
+    from libssa_tpu_torch.ops.mm_device import open_edge
+    from libssa_tpu_torch.ops.ring_block import ring_block_plain
+
+    rows, cols = len(q), len(s)
+    if kind == "carried":
+        sl = torch.as_tensor(rng.integers(0, hi, draw_size(rng, 64)).astype(np.uint8))
+        ql = torch.as_tensor(rng.integers(0, hi, draw_size(rng, 64)).astype(np.uint8))
+        left_in = draw_edges(rng, q, sl, hi, mat, Q, R, local, dt, "open")
+        left = ring_block_plain(q, sl, mat, Q, R, local, *left_in)
+        top = ring_block_plain(ql, s, mat, Q, R, local,
+                               *draw_edges(rng, ql, s, hi, mat, Q, R, local, dt, "open"))
+        return torch.cat([left_in[2][-1:], left.rightH]), left.rightE, top.botH, top.botF
+    k = torch.arange(max(rows, cols) + 1, dtype=torch.int64)
+    if local:
+        left, top = torch.zeros(rows + 1, dtype=dt), torch.zeros(cols, dtype=dt)
+    else:
+        left = open_edge(Q - R, k[:rows + 1], R).to(dt)  # H[i][0]
+        top = open_edge(Q - R, k[1:cols + 1], R).to(dt)  # H[0][j], j >= 1
+    return left, left[1:] - Q + R, top, top - Q + R
+
+
+def phase16b(dev) -> int:
+    """K2 on the card, three launches a draw, against its plain version on
+    the CPU; returns the draws."""
+    import torch
+
+    from libssa_tpu_torch.ops import ring_block, ring_block_cuda
+
+    mats = draw_matrices()
+    seed = DRAW_SEED + 2
+    rng = np.random.default_rng(seed)
+    for i in range(DRAWS["b"]):
+        name = str(rng.choice(["BLOSUM62", "ACGT 5/-4"]))
+        mat, hi = mats[name]
+        mat_c = torch.as_tensor(mat)
+        Q, R = draw_gaps(rng)
+        local = bool(rng.integers(2))
+        dt = torch.int64 if rng.integers(2) else torch.int32
+        configs = k2_configs(dt.itemsize)
+        ch, warps = configs[int(rng.integers(len(configs)))]
+        qbuf = torch.as_tensor(rng.integers(0, hi, 2000).astype(np.uint8))
+        sbuf = torch.as_tensor(rng.integers(0, hi, 2000).astype(np.uint8))
+        jobs, parts = [], []
+        for _ in range(draw_size(rng, 200)):
+            rows, cols = draw_size(rng, 400), draw_size(rng, 600)
+            q0, s0 = int(rng.integers(0, 2001 - rows)), int(rng.integers(0, 2001 - cols))
+            kind = "carried" if rng.random() < 0.3 else "open"
+            jobs.append([q0, rows, s0, cols])
+            parts.append(draw_edges(rng, qbuf[q0:q0 + rows], sbuf[s0:s0 + cols], hi, mat_c, Q,
+                                    R, local, dt, kind))
+        jobs = np.array(jobs, np.int64)
+        flat = [torch.cat(x) for x in zip(*parts)]
+        want = ring_block.ring_block_batch_plain(qbuf, sbuf, jobs, mat_c, Q, R, local, *flat)
+        launch = ring_block_cuda.stage(qbuf.to(dev), sbuf.to(dev), jobs, mat_c.to(dev), Q, R,
+                                       local, *(t.to(dev) for t in flat), ch, warps=warps)
+        for rep in range(DRAW_REPEATS):
+            got = [None if t is None else t.cpu() for t in launch()]
+            err = tiles_diff(got, want)
+            if err:
+                draw_fail("b", seed, i, f"K2 launch {rep} differs by {err}: {len(jobs)} tiles "
+                          f"(rows, cols) {jobs[:, [1, 3]].tolist()} {name} Q={Q} R={R} "
+                          f"local={local} {dt} rows a thread {ch} warps {warps}")
+    return DRAWS["b"]
+
+
+def phase16c(dev) -> int:
+    """K3 on the card at every (rows, warps) that fits, three launches each,
+    against its plain version on the CPU; returns the draws."""
+    import torch
+
+    from libssa_tpu_torch.ops import longpair, longpair_cuda
+
+    mats = draw_matrices()
+    seed = DRAW_SEED + 3
+    rng = np.random.default_rng(seed)
+    for i in range(DRAWS["c"]):
+        m, n = (draw_size(rng, 5000, K3_DRAW_EDGES, 0.5) for _ in range(2))
+        name = str(rng.choice(sorted(mats)))
+        mat, hi = mats[name]
+        mat_c = torch.as_tensor(mat)
+        q = torch.as_tensor(rng.integers(0, hi, m).astype(np.uint8))
+        s = torch.as_tensor(rng.integers(0, hi, n).astype(np.uint8))
+        Q, R = draw_gaps(rng)
+        local = bool(rng.integers(2))
+        # The shorter side as the rows: the score is the same for these
+        # symmetric matrices and equal gaps, and the sweep's time is its rows.
+        a, b = (q, s) if m <= n else (s, q)
+        want = int(longpair.longpair_score_plain(a, b, mat_c, Q, R, local, torch.int64))
+        q_d, s_d, mat_d = q.to(dev), s.to(dev), mat_c.to(dev)
+        for dt in (torch.int32, torch.int64):
+            for ch, w in k3_configs(dt.itemsize):
+                for rep in range(DRAW_REPEATS):
+                    got = longpair_cuda.longpair_score_cuda(q_d, s_d, mat_d, Q, R, local, dt,
+                                                            rows_per_thread=ch, warps=w)
+                    if got.dtype != dt or int(got) != want:
+                        draw_fail("c", seed, i, f"K3 launch {rep} {int(got)} != plain {want}: "
+                                  f"m={m} n={n} {name} Q={Q} R={R} local={local} {dt} rows "
+                                  f"a thread {ch} warps {w}")
+    return DRAWS["c"]
+
+
+def phase16d(dev) -> str:
+    """One ACGT pair past one wave of K3 blocks, SW and NW: K3, K2 as one
+    tile, K1 with P = 1 and the plain sweep of the transposed pair on the
+    card, all equal; returns the report."""
+    import torch
+
+    from libssa_tpu_torch import matrices, oracle
+    from libssa_tpu_torch.ops import interseq, longpair, longpair_cuda, ring_block_cuda
+    from libssa_tpu_torch.ops.scoring import make_profile
+
+    rng = np.random.default_rng(DRAW_SEED + 4)
+    q = rng.integers(0, 4, WAVE_M).astype(np.uint8)
+    s = rng.integers(0, 4, WAVE_N).astype(np.uint8)
+    a, b = WAVE_N // 4, 3 * WAVE_N // 4  # a homologous stretch, 10% substituted
+    s[a:b] = np.where(rng.random(b - a) < 0.1, rng.integers(0, 4, b - a),
+                      q[WAVE_M // 2:WAVE_M // 2 + b - a])
+    mat = matrices.constant_scoring(5, -4).padded()
+    Q, R = oracle.gap_qr(10, 1)
+    q_d, s_d = torch.as_tensor(q).to(dev), torch.as_tensor(s).to(dev)
+    mat_d = torch.as_tensor(mat).to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ch = longpair_cuda.band_rows(WAVE_M, sms)
+    w = longpair_cuda.choose_warps(WAVE_M, ch, sms)
+    groups = -(-WAVE_M // (32 * ch * w))
+    resident = longpair_cuda.attrs(True, False, ch, w)["blocks_an_sm"] * sms
+    if groups <= resident:
+        fail(16, f"16d: {groups} K3 groups fit on the card at once ({resident})")
+    prof = torch.as_tensor(make_profile(q, mat)).to(dev)
+    report = []
+    for local in (True, False):
+        t_k3, k3 = cuda_ms(lambda: longpair_cuda.longpair_score_cuda(
+            q_d, s_d, mat_d, Q, R, local))
+        bounds = [b.to(dev) for b in dp_bounds(WAVE_M, WAVE_N, Q, R, local, torch.int32)]
+        launch = ring_block_cuda.stage(q_d, s_d, [[0, WAVE_M, 0, WAVE_N]], mat_d, Q, R, local,
+                                       *bounds)
+        t_k2, tiles = cuda_ms(launch)
+        k2 = tiles.rowmax.max() if local else tiles.botH[-1]
+        t0 = time.perf_counter()
+        k1 = interseq.pair_scores_batch(prof, s_d[None], torch.tensor([WAVE_N], device=dev),
+                                        Q, R, local)[0]
+        torch.cuda.synchronize()
+        t_k1 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = longpair.longpair_score_plain(s_d, q_d, mat_d, Q, R, local, torch.int32)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        scores = [int(x) for x in (k3, k2, k1, plain)]
+        if len(set(scores)) != 1:
+            fail(16, f"16d {'SW' if local else 'NW'}: K3, K2, K1 and the transposed plain "
+                     f"sweep give {scores}")
+        report.append(f"{'SW' if local else 'NW'} {scores[0]}: K3 {t_k3:.3f} ms, K2 {t_k2:.3f} "
+                      f"ms (the launch alone, {launch.rows_per_thread} rows x "
+                      f"{launch.warps} warps), K1 {t_k1:.3f} s, plain {t_plain:.3f} s")
+    return (f"m={WAVE_M} x n={WAVE_N} ACGT 5/-4 10/1, {groups} K3 groups of {w} warps x {ch} "
+            f"rows against {resident} resident: " + "; ".join(report))
+
+
+def draw_fasta(rng, n_seqs: int, nt: bool) -> str:
+    """A FASTA text of ``n_seqs`` records of 1-300 residues."""
+    lens = [draw_size(rng, 300) for _ in range(n_seqs)]
+    return "".join(f">s{i}\n{draw_residues(rng, n, nt)}\n" for i, n in enumerate(lens))
+
+
+def draw_residues(rng, n: int, nt: bool) -> str:
+    """``n`` residues, about 3% of them ambiguity codes."""
+    from libssa_tpu_torch.constants import AA_ALPHABET, NT_ALPHABET
+
+    alpha, core = (NT_ALPHABET, 4) if nt else (AA_ALPHABET[:-1], 20)
+    codes = rng.integers(0, core, n)
+    amb = rng.random(n) < 0.03
+    codes[amb] = rng.integers(core, len(alpha), int(amb.sum()))
+    return "".join(alpha[c] for c in codes)
+
+
+def hit_fields(hits) -> list:
+    """A hit list's fields but its statistics."""
+    return [(h.seq_id, h.header, h.score, h.align_type, h.strand, h.db_frame, h.q_begin,
+             h.q_end, h.s_begin, h.s_end, h.cigar, h.aligned) for h in hits]
+
+
+def phase16e(dev) -> tuple[int, int, int]:
+    """``SSAContext(device="cuda")`` against ``device="cpu"``: ``sw_align``,
+    ``nw_align`` and ``align_many`` on drawn DBs and queries, each at every
+    ``BitWidth`` in turn, and ``align_pair`` on drawn pairs; returns the
+    draws, the sharded ones and the pairs past 16M cells."""
+    import torch
+
+    from libssa_tpu_torch.api import SSAContext
+    from libssa_tpu_torch.constants import AlignType, BitWidth, ComputeMode, Strand, SymType
+
+    seed = DRAW_SEED + 5
+    rng = np.random.default_rng(seed)
+    widths = list(BitWidth)
+    # set_device_count on the card: 2 shards where there are 2 cards, else
+    # 0 (every card: the sharded engine over the one).
+    card_shards = 2 if torch.cuda.device_count() > 1 else 0
+    sharded = huge = 0
+    for i in range(DRAWS["e"]):
+        op = ("sw", "nw", "many", "pair")[i % 4]
+        bw = widths[(i // 4) % len(widths)]
+        nt = bool(rng.random() < 0.3)
+        go, ge = int(rng.integers(0, 16)), int(rng.integers(0, 5))
+        fro = bool(rng.integers(2)) or go < ge
+        mode = ComputeMode.ALIGNMENT if rng.random() < 0.4 else ComputeMode.SCORE
+        at = AlignType.SW if rng.integers(2) else AlignType.NW
+        k = int(rng.integers(1, 11))
+        shard = op != "pair" and bool(rng.random() < 0.3)
+        if op == "pair":
+            m, n = (draw_size(rng, PAIR_DRAW_MAX) for _ in range(2))
+            if i % 8 == 7:  # past 16M cells: the traceback's levels on K2
+                m, n = (int(rng.integers(4100, PAIR_DRAW_MAX + 1)) for _ in range(2))
+                mode = ComputeMode.ALIGNMENT
+                huge += 1
+            qs = draw_residues(rng, m, nt)
+            ss = draw_residues(rng, n, nt)
+            if rng.random() < 0.5:  # a homolog: the query's start, 10% substituted
+                ss = "".join(c if rng.random() >= 0.1 else d for c, d in zip(qs[:n], ss))
+                ss += draw_residues(rng, n - len(ss), nt)
+            what = f"align_pair m={m} n={n}"
+        else:
+            db = draw_fasta(rng, int(rng.integers(1, 61)), nt)
+            queries = [draw_residues(rng, draw_size(rng, 300), nt)
+                       for _ in range(int(rng.integers(1, 5)))]
+            what = f"{op}, queries of {[len(q) for q in queries]}"
+        got = []
+        for device in (dev, "cpu"):
+            ctx = SSAContext(device=device)
+            if nt:
+                ctx.init_symbol_translation(SymType.NUCLEOTIDE, Strand.BOTH)
+                ctx.init_constant_scoring(5, -4)
+            else:
+                ctx.init_score_matrix("BLOSUM62")
+            ctx.init_gap_penalties(go, ge, fro)
+            if op == "pair":
+                got.append(hit_fields([ctx.align_pair(ctx.init_sequence_fasta(qs), ss, at,
+                                                      mode)]))
+                continue
+            ctx.init_db_fasta(db)
+            if shard:
+                ctx.set_device_count(2 if device == "cpu" else card_shards)
+            qs_ = [ctx.init_sequence_fasta(q) for q in queries]
+            if op == "many":
+                lists = ctx.align_many(qs_, k, mode, at, bw)
+            else:
+                fn = ctx.sw_align if op == "sw" else ctx.nw_align
+                lists = [fn(q, k, bw, mode) for q in qs_]
+            got.append([hit_fields(hl) for hl in lists])
+        sharded += shard
+        if got[0] != got[1]:
+            draw_fail("e", seed, i, f"device='cuda' differs from 'cpu': {what}, "
+                      f"{'ACGT 5/-4' if nt else 'BLOSUM62'} gaps {go}/{ge} "
+                      f"first_residue_opens={fro} {at.name} {bw.name} {mode.name} k={k} "
+                      f"sharded={shard}")
+    return DRAWS["e"], sharded, huge
+
+
+WALKTHROUGHS = {  # (f): each example and lines its output must hold
+    "examples/torch_database_search.py": (
+        "=== SW protein search", "=== NW global search", "=== Nucleotide search",
+        "=== Translated search", "=== Multi-query batched search", "=== Sharded mesh search",
+        "=== Long-pair alignment", "== traceback", "All sections completed."),
+    "examples/torch_genome_pair.py": ("SW score ", "traceback: score "),
+}
+
+
+def phase16f() -> list[str]:
+    """The walkthroughs as subprocesses on the card: exit 0 and their
+    sections' lines; returns each one's seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = []
+    for script, lines in WALKTHROUGHS.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, script], capture_output=True, text=True,
+                              timeout=600, cwd=root)
+        missing = [line for line in lines if line not in proc.stdout]
+        if proc.returncode != 0 or missing:
+            fail(16, f"16f {script}: exit {proc.returncode}, missing {missing}\n"
+                     f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+        out.append(f"{script} {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase16(dev):
+    """K1, K2 and K3 over drawn inputs, the API end to end and the
+    walkthroughs, each part's draws and seconds on a line of its own."""
+    t_phase = time.perf_counter()
+
+    def part(name, fn, what):
+        t0 = time.perf_counter()
+        got = fn()
+        say(f"phase 16{name} {what(got)}: {time.perf_counter() - t0:.1f} s")
+
+    part("a", lambda: phase16a(dev), lambda n: f"K1 vs its plain version (the wrapper on "
+         f"the CPU): {n} draws (seed {DRAW_SEED + 1}) equal, scores, hi and lo")
+    part("b", lambda: phase16b(dev), lambda n: f"K2 vs its plain version: {n} draws (seed "
+         f"{DRAW_SEED + 2}) of 1-200 tiles, {DRAW_REPEATS} launches each, every output equal")
+    part("c", lambda: phase16c(dev), lambda n: f"K3 vs its plain version: {n} draws (seed "
+         f"{DRAW_SEED + 3}) at every (rows, warps) that fits, int32 and int64, "
+         f"{DRAW_REPEATS} launches each, equal")
+    part("d", lambda: phase16d(dev), lambda r: f"past one wave, {card_line()}: {r}; "
+         f"K3, K2, K1 and the transposed plain sweep equal")
+    part("e", lambda: phase16e(dev), lambda r: f"SSAContext cuda vs cpu: {r[0]} draws (seed "
+         f"{DRAW_SEED + 5}), {r[1]} sharded, {r[2]} align_pair past 16M cells, hit lists "
+         f"equal field by field")
+    part("f", phase16f, lambda r: "walkthroughs exit 0 with every section: " + ", ".join(r))
+    say(f"phase 16 drawn inputs: no difference; phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def bound_ms(cells: int, cell: tuple[float, float], nbytes: int) -> tuple[float, str]:
     """The least time for ``cells`` DP cells of ``cell`` = (int32 adds, DPX)
     each, in ms, and what bounds it."""
@@ -2044,6 +2482,7 @@ def main() -> int:
     k2_launches = phase11(dev) + ring_launches
     probe_entries = phase12(dev)
     variant_entries = phase13(dev)
+    phase16(dev)  # after every count of the main path is read
 
     # bound_ms at each timed shape: K1 at bench.py's kernel shape (subject
     # codes in, one score and range out per subject), K3 at 8a SW (codes in),

@@ -1,14 +1,18 @@
 """Lazy builds of the port's C++ and CUDA sources, bound with ``ctypes``.
 
 Each source under ``libssa_tpu_torch/csrc/`` compiles at first use into a
-shared library with a plain C interface, in ``build/libssa_tpu_torch/`` at
-the repository root: the ``.cu`` kernels with ``nvcc`` (``load``), the
-host helpers ``leafalign.cpp`` and ``fastadb.cpp`` with the host C++
-compiler (``load_native``). The file name carries a hash of the source,
-the compiler, the flags and, for ``-march=native`` builds, what the
-compiler makes of ``-march=native`` on this host, so a changed source,
-flag or CPU builds anew and a stale library is never loaded (freshness is
-never judged by mtime). A failed compile leaves no temporary file behind.
+shared library with a plain C interface: the ``.cu`` kernels with ``nvcc``
+(``load``), the host helpers ``leafalign.cpp`` and ``fastadb.cpp`` with
+the host C++ compiler (``load_native``). The libraries go to
+``build/libssa_tpu_torch/`` at the repository root when the package runs
+from a checkout, else (an installed package) to
+``$XDG_CACHE_HOME/libssa_tpu_torch``, by default
+``~/.cache/libssa_tpu_torch`` (``build_dir``). The file name carries a
+hash of the source, the compiler, the flags and, for ``-march=native``
+builds, what the compiler makes of ``-march=native`` on this host, so a
+changed source, flag or CPU builds anew and a stale library is never
+loaded (freshness is never judged by mtime). A failed compile leaves no
+temporary file behind.
 
 A missing ``nvcc`` or a failed kernel build raises: kernels have no
 fallback. A host helper that cannot be built returns None with a WARNING;
@@ -32,7 +36,22 @@ NVCC_FLAGS = (
 )
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-shared")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "libssa_tpu_torch"
+
+
+def build_dir(package: Path) -> Path:
+    """Where the libraries of the package at ``package`` go: ``build/`` of
+    the checkout that holds it (a tree whose root, the package's parent,
+    has ``pyproject.toml``), else the user's cache directory."""
+    root = package.parent
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "libssa_tpu_torch"
+    cache = os.environ.get("XDG_CACHE_HOME", "")
+    if not os.path.isabs(cache):  # unset, empty or relative: the spec's default
+        cache = os.path.join(os.path.expanduser("~"), ".cache")
+    return Path(cache) / "libssa_tpu_torch"
+
+
+BUILD_DIR = build_dir(CSRC.parent)
 
 
 def nvcc_path() -> str:

@@ -220,12 +220,16 @@ def test_cudabuild_without_nvcc_raises(monkeypatch, tmp_path):
 
 @pytest.fixture(scope="module")
 def host_k1(tmp_path_factory):
+    return _host_k1(tmp_path_factory.mktemp("k1"))
+
+
+def _host_k1(tmp_path):
     """K1's source built for the host by the C++ compiler: Part A lane by
     lane, Part B warp by warp in the kernel's lockstep."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
-    out = tmp_path_factory.mktemp("k1") / "k1_host.so"
+    out = tmp_path / "k1_host.so"
     subprocess.run(
         [cxx, "-x", "c++", "-std=c++17", "-O1", "-shared", "-fPIC", "-o",
          str(out), str(cudabuild.CSRC / interseq_cuda.SOURCE)],

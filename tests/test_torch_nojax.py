@@ -5,8 +5,9 @@ into every test process, so only a subprocess can show that the port
 never needs it. ``sys.modules["jax"] = None`` and
 ``sys.modules["libssa_tpu"] = None`` make any import of either raise, and
 the child also asserts that no ``jax`` module was loaded. An AST scan of
-the port's sources and ``chip_smoke.py`` refuses any import of
-``libssa_tpu`` at all, even of a module that would not import JAX.
+the port's sources, ``chip_smoke.py`` and the port's walkthroughs
+(``examples/torch_*.py``) refuses any import of ``libssa_tpu`` or JAX at
+all, even of a module that would not import JAX.
 """
 import ast
 import json
@@ -207,7 +208,7 @@ def test_port_runs_without_jax(tmp_path, entry):
 
 
 def _imports_of_reference(path: Path) -> list[str]:
-    """Every module name ``path`` imports from the JAX package."""
+    """Every module name ``path`` imports from the JAX package or JAX."""
     found = []
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
@@ -216,17 +217,51 @@ def _imports_of_reference(path: Path) -> list[str]:
             names = [node.module or ""]
         else:
             continue
-        found += [n for n in names if n == "libssa_tpu" or n.startswith("libssa_tpu.")]
+        found += [n for n in names if n.split(".")[0] in ("libssa_tpu", "jax", "jaxlib")]
     return found
 
 
 def test_port_sources_never_import_the_jax_package():
-    """No module of the port, and not chip_smoke.py, imports libssa_tpu."""
-    sources = sorted((ROOT / "libssa_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    """No module of the port, not chip_smoke.py and not the port's
+    walkthroughs import libssa_tpu or JAX."""
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) == 2
+    sources = (sorted((ROOT / "libssa_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+               + examples)
     assert len(sources) > 20
     bad = {str(p.relative_to(ROOT)): names for p in sources
            if (names := _imports_of_reference(p))}
     assert not bad, bad
+
+
+_EXAMPLE = """
+import runpy
+example = runpy.run_path({script!r})
+assert example["main"]({args!r}) == 0
+"""
+
+
+@pytest.mark.parametrize("example,args,lines", [
+    ("torch_genome_pair.py", ["--device", "cpu", "64"], ["SW score ", "traceback: score "]),
+    ("torch_database_search.py", ["--device", "cpu", "--devices", "2"],
+     ["=== Sharded mesh search", "== traceback", "All sections completed."]),
+])
+def test_examples_run_without_jax(tmp_path, example, args, lines):
+    """The port's walkthroughs on the CPU with JAX and libssa_tpu blocked,
+    from a copy beside a copy of the fixtures (packed-DB caches never
+    race)."""
+    shutil.copytree(TESTDATA, tmp_path / "tests" / "testdata",
+                    ignore=shutil.ignore_patterns("*.npz"))
+    (tmp_path / "examples").mkdir()
+    script = Path(shutil.copy(ROOT / "examples" / example, tmp_path / "examples"))
+    code = (_PRELUDE.format(root=str(ROOT))
+            + _EXAMPLE.format(script=str(script), args=args) + _EPILOGUE)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=tmp_path, env=env)
+    assert proc.returncode == 0, proc.stderr
+    for line in lines:
+        assert line in proc.stdout, (line, proc.stdout)
 
 
 def _smoke(script: Path, cwd: Path) -> subprocess.CompletedProcess:
