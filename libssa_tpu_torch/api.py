@@ -48,6 +48,7 @@ from .search import aligner
 from .search.manager import SearchEngine, SearchParams, SearchStats, resolve_device
 from .util import logging as _logging
 from .util.logging import log
+from .util.profiling import span
 
 
 class ScoreMismatchError(RuntimeError):
@@ -380,11 +381,12 @@ class SSAContext:
         (ScoreMismatchError on disagreement).
         """
         t0 = time.perf_counter()
-        tb = aligner.align_pair(
-            qc, sc, self.matrix.scores, self.gap_open, self.gap_extend,
-            local, self.params.first_residue_opens, stats=stats,
-            device=self.device,
-        )
+        with span(stats, "traceback.fill"):
+            tb = aligner.align_pair(
+                qc, sc, self.matrix.scores, self.gap_open, self.gap_extend,
+                local, self.params.first_residue_opens, stats=stats,
+                device=self.device,
+            )
         if stats is not None:
             stats.aligner_seconds += time.perf_counter() - t0
             stats.aligner_cells += len(qc) * len(sc)
@@ -392,9 +394,14 @@ class SSAContext:
         hit.q_begin, hit.q_end = tb.q_begin, tb.q_end
         hit.s_begin, hit.s_end = tb.s_begin, tb.s_end
         hit.cigar = tb.cigar
-        hit.aligned = tb.aligned_strings(
-            qc, sc, lambda c: alphabet.decode(c, self.matrix.symtype)
-        )
+        hit.aligned = self._display(tb, qc, sc, stats)
+
+    def _display(self, tb, qc, sc, stats) -> tuple[str, str, str]:
+        """The display rows of one alignment, in a ``display`` span."""
+        with span(stats, "display", columns=len(tb.cigar)):
+            return tb.aligned_strings(
+                qc, sc, lambda c: alphabet.decode(c, self.matrix.symtype)
+            )
 
     def _align(
         self,
@@ -408,9 +415,18 @@ class SSAContext:
         if k < 0:
             raise ValueError(f"hit count k must be >= 0, got {k}")
         engine = self._get_engine()
-        search_db, orig_ids, frame_labels = self._search_db()
         local = align_type is AlignType.SW
         stats = SearchStats()
+        with span(stats, "api.align"):
+            return self._align_hits(
+                query, k, bit_width, mode, align_type, engine, local, stats
+            )
+
+    def _align_hits(
+        self, query, k, bit_width, mode, align_type, engine, local, stats
+    ) -> AlignmentList:
+        """``_align`` past its checks, in its request's root span."""
+        search_db, orig_ids, frame_labels = self._search_db()
         # An entry's score is its best over the query's strands/frames
         # (first listed wins ties).
         q_seqs = self._search_sequences(query)
@@ -550,65 +566,66 @@ class SSAContext:
         if self.matrix is None:
             raise RuntimeError("init_score_matrix() must be called first")
         local = align_type is AlignType.SW
-        sc = alphabet.encode(subject, self.matrix.symtype)
-        q_seqs = self._search_sequences(query)
         stats = SearchStats()
-        if mode is ComputeMode.SCORE:
-            from .ops.longpair import longpair_score
+        with span(stats, "api.align_pair"):
+            sc = alphabet.encode(subject, self.matrix.symtype)
+            q_seqs = self._search_sequences(query)
+            if mode is ComputeMode.SCORE:
+                from .ops.longpair import longpair_score
 
-            t0 = time.perf_counter()
-            best_s = None
-            for label, qc in q_seqs:
-                s = longpair_score(
-                    qc, sc, self.matrix.padded(), self.gap_open,
-                    self.gap_extend, local=local,
-                    first_residue_opens=self.params.first_residue_opens,
-                    kernel=self.params.kernel, device=self.device,
+                t0 = time.perf_counter()
+                best_s = None
+                for label, qc in q_seqs:
+                    s = longpair_score(
+                        qc, sc, self.matrix.padded(), self.gap_open,
+                        self.gap_extend, local=local,
+                        first_residue_opens=self.params.first_residue_opens,
+                        kernel=self.params.kernel, device=self.device,
+                        stats=stats,
+                    )
+                    stats.cells += len(qc) * len(sc)
+                    stats.dispatches += 1
+                    stats.fetches += 1
+                    if best_s is None or s > best_s[1]:
+                        best_s = (label, s)
+                stats.seconds += time.perf_counter() - t0
+                label, score = best_s
+                return Alignment(
+                    seq_id=-1,
+                    header="subject",
+                    score=int(score),
+                    align_type=align_type,
+                    strand=label,
+                    stats=stats,
                 )
-                stats.cells += len(qc) * len(sc)
-                stats.dispatches += 1
-                stats.fetches += 1
-                if best_s is None or s > best_s[1]:
-                    best_s = (label, s)
-            stats.seconds += time.perf_counter() - t0
-            label, score = best_s
+            t0 = time.perf_counter()
+            best = None
+            for label, qc in q_seqs:
+                with span(stats, "traceback.fill"):
+                    tb = aligner.align_pair(
+                        qc, sc, self.matrix.scores, self.gap_open, self.gap_extend,
+                        local, self.params.first_residue_opens, stats=stats,
+                        device=self.device,
+                    )
+                stats.aligner_cells += len(qc) * len(sc)
+                if best is None or tb.score > best[1].score:
+                    best = (label, tb, qc)
+            stats.aligner_seconds += time.perf_counter() - t0
+            label, tb, qc = best
             return Alignment(
                 seq_id=-1,
                 header="subject",
-                score=int(score),
+                score=tb.score,
                 align_type=align_type,
                 strand=label,
+                q_begin=tb.q_begin,
+                q_end=tb.q_end,
+                s_begin=tb.s_begin,
+                s_end=tb.s_end,
+                cigar=tb.cigar,
+                aligned=self._display(tb, qc, sc, stats),
                 stats=stats,
             )
-        t0 = time.perf_counter()
-        best = None
-        for label, qc in q_seqs:
-            tb = aligner.align_pair(
-                qc, sc, self.matrix.scores, self.gap_open, self.gap_extend,
-                local, self.params.first_residue_opens, stats=stats,
-                device=self.device,
-            )
-            stats.aligner_cells += len(qc) * len(sc)
-            if best is None or tb.score > best[1].score:
-                best = (label, tb, qc)
-        stats.aligner_seconds += time.perf_counter() - t0
-        label, tb, qc = best
-        return Alignment(
-            seq_id=-1,
-            header="subject",
-            score=tb.score,
-            align_type=align_type,
-            strand=label,
-            q_begin=tb.q_begin,
-            q_end=tb.q_end,
-            s_begin=tb.s_begin,
-            s_end=tb.s_end,
-            cigar=tb.cigar,
-            aligned=tb.aligned_strings(
-                qc, sc, lambda c: alphabet.decode(c, self.matrix.symtype)
-            ),
-            stats=stats,
-        )
 
     def align_many(
         self,
@@ -639,28 +656,29 @@ class SSAContext:
                 for q in queries
             ]
         stats = SearchStats()
-        hitlists = engine.search_many(
-            [q.sequences[0][1] for q in queries], k, local, stats, bit_width
-        )
-        out = []
-        for q, (top_s, top_i) in zip(queries, hitlists):
-            hits = []
-            for score, sid in zip(top_s, top_i):
-                hit = Alignment(
-                    seq_id=int(sid),
-                    header=self.db.headers[int(sid)],
-                    score=int(score),
-                    align_type=align_type,
-                    strand=q.sequences[0][0],
-                )
-                if mode is ComputeMode.ALIGNMENT:
-                    self._fill_traceback(
-                        hit, q.sequences[0][1], self.db.sequence(int(sid)),
-                        local, stats,
+        with span(stats, "api.align_many"):
+            hitlists = engine.search_many(
+                [q.sequences[0][1] for q in queries], k, local, stats, bit_width
+            )
+            out = []
+            for q, (top_s, top_i) in zip(queries, hitlists):
+                hits = []
+                for score, sid in zip(top_s, top_i):
+                    hit = Alignment(
+                        seq_id=int(sid),
+                        header=self.db.headers[int(sid)],
+                        score=int(score),
+                        align_type=align_type,
+                        strand=q.sequences[0][0],
                     )
-                hits.append(hit)
-            out.append(AlignmentList(hits=hits, stats=stats))
-        return out
+                    if mode is ComputeMode.ALIGNMENT:
+                        self._fill_traceback(
+                            hit, q.sequences[0][1], self.db.sequence(int(sid)),
+                            local, stats,
+                        )
+                    hits.append(hit)
+                out.append(AlignmentList(hits=hits, stats=stats))
+            return out
 
     def sw_align(
         self,

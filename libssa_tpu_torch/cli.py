@@ -172,10 +172,11 @@ def cmd_pair(args) -> int:
     ctx = _configure(args)
     query = ctx.init_sequence_fasta(args.query)
     _, subject = parse_sequence_arg(args.subject, what="subject")
-    a = ctx.align_pair(
-        query, subject, AlignType.SW if args.algo == "sw" else AlignType.NW,
-        mode=ComputeMode.SCORE if args.score_only else ComputeMode.ALIGNMENT,
-    )
+    with trace(args.xprof):
+        a = ctx.align_pair(
+            query, subject, AlignType.SW if args.algo == "sw" else AlignType.NW,
+            mode=ComputeMode.SCORE if args.score_only else ComputeMode.ALIGNMENT,
+        )
     _print_hit(a, 1, not args.score_only)
     return 0
 
@@ -215,8 +216,8 @@ def main(argv=None) -> int:
                     help="pin the scoring kernel: cuda (K1) or the plain "
                          "PyTorch version")
     ps.add_argument("--xprof", metavar="DIR", default=None,
-                    help="write a torch.profiler chrome trace of the search "
-                         "to DIR/trace.json")
+                    help="write a torch.profiler chrome trace of the search, "
+                         "the port's spans included, to DIR/trace.json")
     _add_scoring_args(ps)
     ps.set_defaults(fn=cmd_search)
 
@@ -228,6 +229,9 @@ def main(argv=None) -> int:
         help="score without traceback (the long-pair scorer: K3 on the card); "
              "without it, pairs above 16M cells align in linear space on K2",
     )
+    pp.add_argument("--xprof", metavar="DIR", default=None,
+                    help="write a torch.profiler chrome trace of the pair, the "
+                         "port's spans included, to DIR/trace.json")
     _add_scoring_args(pp)
     pp.set_defaults(fn=cmd_pair)
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..util.profiling import span
 from .interseq import INT32_LIMIT
 
 
@@ -112,34 +113,41 @@ def longpair_score(
     first_residue_opens: bool = True,
     kernel: str = "auto",
     device="cuda",
+    stats=None,
 ) -> int:
     """Host convenience: exact SW/NW score of one (possibly huge) pair.
 
     ``kernel``: "auto"/"cuda" runs K3's wrapper, which launches K3 on a
     CUDA ``device`` (or raises) and runs the plain version on the CPU;
     "plain" runs the plain version on ``device``. Empty inputs are
-    answered on the host.
+    answered on the host. ``stats``: the request's ``SearchStats``, which
+    gets the ``longpair.score`` span and its waits on the device.
     """
     from ..oracle import gap_qr
 
-    Q, R = gap_qr(gap_open, gap_extend, first_residue_opens)
-    m, n = len(q_codes), len(s_codes)
-    if m == 0 or n == 0:
-        if local:
-            return 0
-        lm = max(m, n)
-        return 0 if lm == 0 else -(Q + (lm - 1) * R)
+    with span(stats, "longpair.score"):
+        Q, R = gap_qr(gap_open, gap_extend, first_residue_opens)
+        m, n = len(q_codes), len(s_codes)
+        if m == 0 or n == 0:
+            if local:
+                return 0
+            lm = max(m, n)
+            return 0 if lm == 0 else -(Q + (lm - 1) * R)
 
-    if kernel == "plain":
-        fn = longpair_score_plain
-    elif kernel in ("auto", "cuda"):
-        from .longpair_cuda import longpair_score_cuda as fn
-    else:
-        raise ValueError(f"unknown kernel {kernel!r} (auto | cuda | plain)")
-    dt = (torch.int32 if score_bound(m, n, matrix_padded, Q, R) < INT32_LIMIT
-          else torch.int64)
-    dev = torch.device(device)
-    q = torch.as_tensor(np.asarray(q_codes, np.uint8)).to(dev)
-    s = torch.as_tensor(np.asarray(s_codes, np.uint8)).to(dev)
-    mat = torch.as_tensor(np.asarray(matrix_padded, np.int32)).to(dev)
-    return int(fn(q, s, mat, Q, R, local=local, dtype=dt))
+        if kernel not in ("auto", "cuda", "plain"):
+            raise ValueError(f"unknown kernel {kernel!r} (auto | cuda | plain)")
+        dt = (torch.int32 if score_bound(m, n, matrix_padded, Q, R) < INT32_LIMIT
+              else torch.int64)
+        dev = torch.device(device)
+        q = torch.as_tensor(np.asarray(q_codes, np.uint8)).to(dev)
+        s = torch.as_tensor(np.asarray(s_codes, np.uint8)).to(dev)
+        mat = torch.as_tensor(np.asarray(matrix_padded, np.int32)).to(dev)
+        if kernel == "plain":
+            result = longpair_score_plain(q, s, mat, Q, R, local=local, dtype=dt)
+        else:
+            from .longpair_cuda import longpair_score_cuda
+
+            result = longpair_score_cuda(q, s, mat, Q, R, local=local, dtype=dt,
+                                         stats=stats)
+        with span(stats, "device.wait"):
+            return int(result)

@@ -16,6 +16,7 @@ import functools
 
 import torch
 
+from ..util.profiling import span
 from . import longpair
 from .interseq_cuda import _check, check_gaps
 
@@ -124,13 +125,15 @@ def longpair_score_cuda(
     dtype: torch.dtype = torch.int32,
     rows_per_thread: int | None = None,
     warps: int | None = None,
+    stats=None,
 ) -> torch.Tensor:
     """Exact SW/NW score of one pair as a 0-dim ``dtype`` tensor.
 
     ``rows_per_thread`` pins K3's band height (one of ``BAND_ROWS``);
     None picks it by ``band_rows``. ``warps`` pins the stripes a block
     (tests, ``chip_smoke.py``); None takes ``choose_warps``. The result
-    stays on the device.
+    stays on the device. ``stats``: the request's ``SearchStats``, which
+    gets a ``device.wait`` span around the codes' check.
     """
     global launches
     if s.device.type == "cpu":
@@ -138,7 +141,7 @@ def longpair_score_cuda(
             q, s, matrix_padded, Q, R, local=local, dtype=dtype
         )
     result = enqueue(_lib(), q, s, matrix_padded, Q, R, local, dtype, rows_per_thread,
-                     warps=warps)
+                     warps=warps, stats=stats)
     launches += 1
     return result
 
@@ -154,6 +157,7 @@ def enqueue(
     dtype: torch.dtype,
     rows_per_thread: int | None,
     warps: int | None = None,
+    stats=None,
 ) -> torch.Tensor:
     """Check the CUDA inputs and launch ``lib``'s K3 once (no count):
     ``longpair_score_cuda``'s launch, shared with the stage-cut probes."""
@@ -174,7 +178,9 @@ def enqueue(
     _check("q", q, torch.uint8, (m,), dev)
     _check("s", s, torch.uint8, (n,), dev)
     _check("matrix_padded", matrix_padded, torch.int32, (32, 32), dev)
-    if int(torch.maximum(q.max(), s.max())) >= 32:
+    with span(stats, "device.wait"):
+        top = int(torch.maximum(q.max(), s.max()))
+    if top >= 32:
         raise ValueError("codes must be < 32")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if rows_per_thread is None:

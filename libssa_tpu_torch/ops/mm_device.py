@@ -40,6 +40,7 @@ import time
 import numpy as np
 import torch
 
+from ..util.profiling import span
 from . import ring_block, ring_block_cuda
 from .interseq import INT32_LIMIT
 from .longpair import score_bound
@@ -89,10 +90,14 @@ class DevicePair:
 
     Counters: ``dispatches`` (K2 launches, each followed by one fetch),
     ``levels`` (``divide_level`` calls) and ``seconds`` (wall time of those
-    calls, the fetch's wait for the device included).
+    calls, the fetch's wait for the device included). ``stats``, the
+    request's ``SearchStats`` where given, gets a ``device.wait`` span
+    around each fetch, and around the first upload after a launch (a
+    blocking copy from host memory waits for the work queued before it).
     """
 
-    def __init__(self, q_codes, s_codes, matrix_padded, gap_q, gap_r, device="cuda"):
+    def __init__(self, q_codes, s_codes, matrix_padded, gap_q, gap_r, device="cuda",
+                 stats=None):
         q, s = np.asarray(q_codes), np.asarray(s_codes)
         for codes in (q, s):  # checked once here, not at every K2 launch
             if codes.size and not 0 <= int(codes.min()) <= int(codes.max()) < 32:
@@ -107,6 +112,7 @@ class DevicePair:
         self.q = torch.from_numpy(np.concatenate([q, q[::-1]])).to(self.device)
         self.s = torch.from_numpy(np.concatenate([s, s[::-1]])).to(self.device)
         self.matrix = torch.from_numpy(mat.astype(np.int32)).to(self.device)
+        self.stats = stats
         self.dispatches = 0
         self.levels = 0
         self.seconds = 0.0
@@ -178,7 +184,9 @@ class DevicePair:
 
         # t1[j] = CCf[j] + CCr[nn - j], t2[j] = DDf[j] + DDr[nn - j] - g,
         # j = 0 .. nn, with CC[0] = DD[0] = tb + R * rows (column 0).
-        cstart = torch.as_tensor(ring_block.offsets(jobs)["cols"]).to(dev)
+        cstart = torch.as_tensor(ring_block.offsets(jobs)["cols"])
+        with span(self.stats, "device.wait"):  # a blocking upload waits for K2
+            cstart = cstart.to(dev)
         seg, j = _segments(nn + 1, dev)
         nn_d = torch.as_tensor(nn).to(dev)[seg]
         c0f = torch.as_tensor(tbf + R * mid).to(dev)[seg]
@@ -190,7 +198,9 @@ class DevicePair:
         t2 = torch.where(at0, c0f, -botF[fi]) + torch.where(atn, c0r, -botF[ri]) - g
         j1, v1 = _seg_argmin(t1, seg, j, k)
         j2, v2 = _seg_argmin(t2, seg, j, k)
-        res = torch.stack([j1, j2, v1, v2], 1).cpu().tolist()  # the one fetch
+        res = torch.stack([j1, j2, v1, v2], 1)
+        with span(self.stats, "device.wait"):
+            res = res.cpu().tolist()  # the one fetch
         self.dispatches += 1
         self.levels += 1
         self.seconds += time.perf_counter() - t0
@@ -205,8 +215,9 @@ class DevicePair:
         out = self._run(np.array([self._jobs(q_off, m, s_off, n, reverse)], np.int64),
                         np.array([tb]))
         c0 = tb + self.R * m
-        CC = np.concatenate([[c0], -out.botH.long().cpu().numpy()])
-        DD = np.concatenate([[c0], -out.botF.long().cpu().numpy()])
+        with span(self.stats, "device.wait"):
+            CC = np.concatenate([[c0], -out.botH.long().cpu().numpy()])
+            DD = np.concatenate([[c0], -out.botF.long().cpu().numpy()])
         self.dispatches += 1
         self.seconds += time.perf_counter() - t0
         return CC.astype(np.int64), DD.astype(np.int64)
@@ -221,7 +232,9 @@ class DevicePair:
         rows = torch.arange(m, device=self.device)
         i = torch.where(out.rowmax == best, rows, m).min().view(1)  # the first row reaching it
         j = out.rowarg.index_select(0, i).long()
-        best, i, j = torch.cat([best.long().view(1), i, j]).cpu().tolist()  # the one fetch
+        fetched = torch.cat([best.long().view(1), i, j])
+        with span(self.stats, "device.wait"):
+            best, i, j = fetched.cpu().tolist()  # the one fetch
         self.dispatches += 1
         self.seconds += time.perf_counter() - t0
         if best <= 0:

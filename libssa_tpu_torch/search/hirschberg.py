@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..oracle import NEG, Traceback, gap_qr
+from ..util.profiling import span
 
 INF = int(2**60)
 
@@ -110,7 +111,7 @@ def _rev(x):
     return np.ascontiguousarray(x[::-1])
 
 
-def _make_device_pair(q, s, sub, Q, R, device):
+def _make_device_pair(q, s, sub, Q, R, device, stats):
     """The whole pair resident on ``device``, or None.
 
     Built once per ``align_pair_linear`` call when the pair is device-
@@ -123,7 +124,7 @@ def _make_device_pair(q, s, sub, Q, R, device):
         return None
     from ..ops.mm_device import DevicePair
 
-    return DevicePair(q, s, _pad32(sub), Q, R, device=device)
+    return DevicePair(q, s, _pad32(sub), Q, R, device=device, stats=stats)
 
 
 def _ops_small(q, s, cost, g, h, tb, te):
@@ -293,7 +294,7 @@ class _Node:
         self.tb, self.te = tb, te
 
 
-def _nw_ops(q, s, cost, g, h, tb, te, dev=None, q0=0, s0=0):
+def _nw_ops(q, s, cost, g, h, tb, te, dev=None, q0=0, s0=0, stats=None):
     """Myers-Miller -> ops list 'M'/'D'/'I' (D: query residue to gap,
     I: subject residue to gap).
 
@@ -305,7 +306,8 @@ def _nw_ops(q, s, cost, g, h, tb, te, dev=None, q0=0, s0=0):
     direction-matrix fill. ``q0``/``s0``: this rectangle's offset in the
     full pair (``dev`` windows are absolute). Levels below
     DEVICE_MIN_CELLS run the host NumPy passes instead — cheaper than a
-    round trip.
+    round trip. ``stats``: the request's ``SearchStats``, which gets an
+    ``mm.level`` span for each level's divide passes.
     """
     items = [_Node(0, len(q), 0, len(s), tb, te)]
     while True:
@@ -330,35 +332,36 @@ def _nw_ops(q, s, cost, g, h, tb, te, dev=None, q0=0, s0=0):
             else:
                 requests.append((i, nd))
         if requests:
-            splits = None
-            if dev is not None and sum(
-                (nd.qe - nd.qs) * (nd.se - nd.ss) for _, nd in requests
-            ) >= DEVICE_MIN_CELLS:
-                splits = dev.divide_level(
-                    [
-                        (q0 + nd.qs, q0 + nd.qe, s0 + nd.ss, s0 + nd.se,
-                         nd.tb == 0, nd.te == 0)
-                        for _, nd in requests
-                    ]
-                )
-            if splits is None:
-                splits = []
-                for _, nd in requests:
-                    mid = (nd.qe - nd.qs) // 2
-                    CCf, DDf = _mm_pass(
-                        q[nd.qs : nd.qs + mid], s[nd.ss : nd.se],
-                        cost, g, h, nd.tb,
+            cells = sum((nd.qe - nd.qs) * (nd.se - nd.ss) for _, nd in requests)
+            on_device = dev is not None and cells >= DEVICE_MIN_CELLS
+            with span(stats, "mm.level", nodes=len(requests), cells=cells,
+                      device=on_device):
+                if on_device:
+                    splits = dev.divide_level(
+                        [
+                            (q0 + nd.qs, q0 + nd.qe, s0 + nd.ss, s0 + nd.se,
+                             nd.tb == 0, nd.te == 0)
+                            for _, nd in requests
+                        ]
                     )
-                    CCr, DDr = _mm_pass(
-                        _rev(q[nd.qs + mid : nd.qe]),
-                        _rev(s[nd.ss : nd.se]), cost, g, h, nd.te,
-                    )
-                    CCr, DDr = _rev(CCr), _rev(DDr)
-                    t1 = CCf + CCr  # crossing at (mid, j), match/insert
-                    t2 = DDf + DDr - g  # crossing inside a vertical gap
-                    j1 = int(np.argmin(t1))
-                    j2 = int(np.argmin(t2))
-                    splits.append((j1, j2, int(t1[j1]), int(t2[j2])))
+                else:
+                    splits = []
+                    for _, nd in requests:
+                        mid = (nd.qe - nd.qs) // 2
+                        CCf, DDf = _mm_pass(
+                            q[nd.qs : nd.qs + mid], s[nd.ss : nd.se],
+                            cost, g, h, nd.tb,
+                        )
+                        CCr, DDr = _mm_pass(
+                            _rev(q[nd.qs + mid : nd.qe]),
+                            _rev(s[nd.ss : nd.se]), cost, g, h, nd.te,
+                        )
+                        CCr, DDr = _rev(CCr), _rev(DDr)
+                        t1 = CCf + CCr  # crossing at (mid, j), match/insert
+                        t2 = DDf + DDr - g  # crossing inside a vertical gap
+                        j1 = int(np.argmin(t1))
+                        j2 = int(np.argmin(t2))
+                        splits.append((j1, j2, int(t1[j1]), int(t2[j2])))
             for (i, nd), (j1, j2, v1, v2) in zip(requests, splits):
                 mid = (nd.qe - nd.qs) // 2
                 if v1 <= v2:
@@ -452,7 +455,8 @@ def align_pair_linear(
     run. ``stats`` (a ``SearchStats``, optional): the device path's K2
     launches, levels and seconds are folded into
     ``stats.aligner_dispatches``, ``aligner_levels`` and
-    ``aligner_device_seconds``.
+    ``aligner_device_seconds``, and, while tracing, it gets the
+    ``mm.align`` span and a span a level (``util/profiling.py``).
     """
     Q, R = gap_qr(gap_open, gap_extend, first_residue_opens)
     q = np.asarray(q, dtype=np.intp)
@@ -466,42 +470,44 @@ def align_pair_linear(
         return Traceback(score, 0, m, 0, n, "D" * m + "I" * n)
     g, h = Q - R, R
     cost = -sub.astype(np.int64)
-    dev = _make_device_pair(q, s, sub, Q, R, torch.device(device))
-    if dev is not None:
-        _warn_if_no_native_leaf()
+    with span(stats, "mm.align"):
+        dev = _make_device_pair(q, s, sub, Q, R, torch.device(device), stats)
+        if dev is not None:
+            _warn_if_no_native_leaf()
 
-    try:
-        if local:
-            if dev is not None:
-                score, ei, ej = dev.sw_end(0, m, 0, n)
-            else:
-                score, ei, ej = _score_end_sw(q, s, sub, Q, R)
-            if score == 0:
-                return Traceback(0, 0, 0, 0, 0, "")
-            # Reverse pass over the prefix rectangle finds the start cell
-            # (a window into the REVERSED planes: rev(q[:ei]) = rev-q rows
-            # [m-ei, m), same for the subject).
-            if dev is not None:
-                _, ri, rj = dev.sw_end(m - ei, ei, n - ej, ej, reverse=True)
-            else:
-                _, ri, rj = _score_end_sw(
-                    _rev(q[:ei]), _rev(s[:ej]), sub, Q, R
+        try:
+            if local:
+                if dev is not None:
+                    score, ei, ej = dev.sw_end(0, m, 0, n)
+                else:
+                    score, ei, ej = _score_end_sw(q, s, sub, Q, R)
+                if score == 0:
+                    return Traceback(0, 0, 0, 0, 0, "")
+                # Reverse pass over the prefix rectangle finds the start cell
+                # (a window into the REVERSED planes: rev(q[:ei]) = rev-q rows
+                # [m-ei, m), same for the subject).
+                if dev is not None:
+                    _, ri, rj = dev.sw_end(m - ei, ei, n - ej, ej, reverse=True)
+                else:
+                    _, ri, rj = _score_end_sw(
+                        _rev(q[:ei]), _rev(s[:ej]), sub, Q, R
+                    )
+                si, sj = ei - ri, ej - rj  # 0-based start
+                ops = _nw_ops(
+                    q[si:ei], s[sj:ej], cost, g, h, g, g, dev=dev, q0=si, s0=sj,
+                    stats=stats,
                 )
-            si, sj = ei - ri, ej - rj  # 0-based start
-            ops = _nw_ops(
-                q[si:ei], s[sj:ej], cost, g, h, g, g, dev=dev, q0=si, s0=sj
+                return Traceback(score, si, ei, sj, ej, "".join(ops))
+            ops = _nw_ops(q, s, cost, g, h, g, g, dev=dev, stats=stats)
+            # The optimal score is the optimal path's score: evaluate the ops
+            # in O(m+n) instead of re-running a whole O(m*n) forward pass
+            # (which was +33-50% wall time on every huge-pair global
+            # alignment) just to read CC[n].
+            return Traceback(
+                _ops_score(q, s, sub, Q, R, ops), 0, m, 0, n, "".join(ops)
             )
-            return Traceback(score, si, ei, sj, ej, "".join(ops))
-        ops = _nw_ops(q, s, cost, g, h, g, g, dev=dev)
-        # The optimal score is the optimal path's score: evaluate the ops
-        # in O(m+n) instead of re-running a whole O(m*n) forward pass
-        # (which was +33-50% wall time on every huge-pair global
-        # alignment) just to read CC[n].
-        return Traceback(
-            _ops_score(q, s, sub, Q, R, ops), 0, m, 0, n, "".join(ops)
-        )
-    finally:
-        if stats is not None and dev is not None:
-            stats.aligner_dispatches += dev.dispatches
-            stats.aligner_levels += dev.levels
-            stats.aligner_device_seconds += dev.seconds
+        finally:
+            if stats is not None and dev is not None:
+                stats.aligner_dispatches += dev.dispatches
+                stats.aligner_levels += dev.levels
+                stats.aligner_device_seconds += dev.seconds

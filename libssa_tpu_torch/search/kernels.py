@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import interseq, interseq_cuda
+from ..util.profiling import span
 
 NEG = -(2**31) + 1  # sorts after every real score
 INVALID = 2**31 - 1  # sorts after every real id
@@ -140,10 +141,14 @@ def stage_sweep(
         ]
         return _flat(parts)
 
-    def sweep_multi_topk(profiles, stacks, m_reals, k: int, n_queries: int):
+    def sweep_multi_topk(profiles, stacks, m_reals, k: int, n_queries: int, stats=None):
         """Multi-query sweep reduced to per-query top-k on the device.
 
         Returns ``(top_s (Q, k'), top_i (Q, k'), any_f, n_flagged)``.
+        ``stats``: the request's ``SearchStats``, which gets a
+        ``device.wait`` span around each stack group's index upload: a
+        blocking copy from host memory waits for the work queued before it,
+        the previous group's launch.
         """
         dev = profiles.device
         mrs = m_real_index(m_reals, profiles)
@@ -151,7 +156,8 @@ def stage_sweep(
         any_f = torch.zeros((), dtype=torch.bool, device=dev)
         n_flagged = torch.zeros((), dtype=torch.int64, device=dev)
         for codes, lens, ids, iq, ic in stacks:
-            iq_d, ic_d = _index(iq, dev), _index(ic, dev)
+            with span(stats, "device.wait"):
+                iq_d, ic_d = _index(iq, dev), _index(ic, dev)
             s, hi, lo = run(profiles, codes, lens, iq_d, ic_d, mrs)
             ids_rows = ids[ic_d.long()]  # (P, B) global ids, -1 padding
             valid = ids_rows >= 0

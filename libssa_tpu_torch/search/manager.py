@@ -36,6 +36,7 @@ from ..ops.interseq_cuda import SCRATCH_BUDGET
 from ..ops.longpair import score_bound
 from ..ops.scoring import make_padded_profile
 from ..ops.topk import host_topk
+from ..util.profiling import adopt, span
 
 F32_WINDOW = 2**24 - 1  # the reference's exact f32 integer window
 
@@ -92,6 +93,9 @@ class SearchStats:
     aligner_levels: int = 0
     aligner_device_seconds: float = 0.0
     notes: list = field(default_factory=list)
+    # The request's spans while a torch.profiler profile records
+    # (util/profiling.py); empty otherwise.
+    spans: list = field(default_factory=list)
 
     @property
     def gcups(self) -> float:
@@ -102,7 +106,8 @@ class SearchStats:
 
         The outer sweep's wall-clock interval already contains the nested
         run, so ``seconds`` never carries over. ``work=True`` also carries
-        cells/subjects (genuine extra work, e.g. an overflow rescore).
+        cells/subjects (genuine extra work, e.g. an overflow rescore). The
+        nested run's spans go under the span open here.
         """
         if work:
             self.cells += other.cells
@@ -117,6 +122,7 @@ class SearchStats:
         for k, v in other.rescored.items():
             self.rescored[k] = self.rescored.get(k, 0) + v
         self.notes.extend(other.notes)
+        adopt(self.spans, other.spans)
 
 
 def _rungs(bit_width: BitWidth, dtype: str):
@@ -250,8 +256,9 @@ class SearchEngine:
         s_flat, f_flat = sweep(profile, stacks, m_real)
         if stats is not None:
             stats.dispatches += 1
-        s_all = s_flat.cpu().numpy()
-        f_all = f_flat.cpu().numpy() if eff_limit is not None else None
+        with span(stats, "device.wait"):
+            s_all = s_flat.cpu().numpy()
+            f_all = f_flat.cpu().numpy() if eff_limit is not None else None
         if stats is not None:
             stats.fetches += 1 + (1 if eff_limit is not None else 0)
 
@@ -452,13 +459,14 @@ class SearchEngine:
                 )
             s_flat, f_flat = sweep_multi(prof_stack, tuple(stacks), m_reals)
             stats.dispatches += 1
-            results.append(
-                (
-                    row_map,
-                    s_flat.cpu().numpy(),
-                    f_flat.cpu().numpy() if track else None,
+            with span(stats, "device.wait"):
+                results.append(
+                    (
+                        row_map,
+                        s_flat.cpu().numpy(),
+                        f_flat.cpu().numpy() if track else None,
+                    )
                 )
-            )
             stats.fetches += 1 + (1 if track else 0)
 
         scores = np.zeros((len(queries), len(self.db)), dtype=np.int64)
@@ -521,9 +529,10 @@ class SearchEngine:
         scalar come back; an f32-window overflow falls back to the
         full-matrix path. A narrow ``bit_width`` (BIT8/BIT16) counts the
         (query, subject) pairs whose score range left the requested window
-        as ``stats.rescored``; the hit lists equal EXACT's.
+        as ``stats.rescored``; the hit lists equal EXACT's. Queries of
+        different profile heights (32-row multiples) sweep one height at a
+        time.
         """
-        p = self.params
         stats = stats if stats is not None else SearchStats()
         if not queries or any(len(q) == 0 for q in queries):
             raise ValueError("need at least one non-empty query")
@@ -537,26 +546,27 @@ class SearchEngine:
                 "int64-terminal escapes; direct int64 sweep is the "
                 "single-query search()"
             )
-            if note not in stats.notes:  # height-group recursion reuses stats
+            if note not in stats.notes:  # once a stats, as the JAX package's
                 stats.notes.append(note)
-        heights = {len(q) + ((-len(q)) % 32) for q in queries}
-        if len(heights) > 1:
-            # Mixed profile heights: one device top-k sweep per height group.
-            out: list = [None] * len(queries)
+        with span(stats, "search.many"):
+            # One device top-k sweep a profile height.
             hgroups: dict[int, list[int]] = {}
             for qi, q in enumerate(queries):
                 hgroups.setdefault(len(q) + ((-len(q)) % 32), []).append(qi)
-            for qis in hgroups.values():
-                for qi, r in zip(
-                    qis,
-                    self.search_many(
-                        [queries[qi] for qi in qis], k, local, stats,
-                        bit_width,
-                    ),
-                ):
+            out: list = [None] * len(queries)
+            for rows, qis in hgroups.items():
+                with span(stats, "search.group", queries=len(qis), rows=rows):
+                    hits = self._search_group(
+                        [queries[qi] for qi in qis], k, local, stats, nlimit
+                    )
+                for qi, r in zip(qis, hits):
                     out[qi] = r
             return out
 
+    def _search_group(self, queries, k, local, stats, nlimit):
+        """``search_many`` for queries of one profile height: one sweep, the
+        device top-k and one fetch."""
+        p = self.params
         t0 = time.perf_counter()
         prof_stack = self._profiles(queries)
         grouped, dev_stacks = self._stacks_on_device(self.db, p.batch_size)
@@ -572,7 +582,7 @@ class SearchEngine:
             ic = np.tile(np.arange(nc, dtype=np.int32), nq)
             stacks.append((codes, lens, ids_d, iq, ic))
         top_s, top_i, any_f, n_fl = sweep_topk(
-            prof_stack, tuple(stacks), m_reals, k, nq
+            prof_stack, tuple(stacks), m_reals, k, nq, stats
         )
         stats.dispatches += 1
         fetched = torch.cat(
@@ -582,7 +592,9 @@ class SearchEngine:
                 any_f.long().reshape(1),
                 n_fl.long().reshape(1),
             ]
-        ).cpu().numpy()
+        )
+        with span(stats, "device.wait"):
+            fetched = fetched.cpu().numpy()
         stats.fetches += 1
         if nlimit is not None and fetched[-1]:
             key = f"limit>{nlimit}/pairs"
