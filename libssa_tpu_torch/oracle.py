@@ -110,28 +110,42 @@ class Traceback:
     cigar: str
 
     def aligned_strings(self, q: np.ndarray, s: np.ndarray, decode_fn) -> tuple[str, str, str]:
-        """Render (query_row, midline, subject_row) for display."""
-        qi, si = self.q_begin, self.s_begin
-        top, mid, bot = [], [], []
-        for op in self.cigar:
-            if op == "M":
-                a, b = decode_fn(q[qi : qi + 1]), decode_fn(s[si : si + 1])
-                top.append(a)
-                bot.append(b)
-                mid.append("|" if a == b else " ")
-                qi += 1
-                si += 1
-            elif op == "D":
-                top.append(decode_fn(q[qi : qi + 1]))
-                bot.append("-")
-                mid.append(" ")
-                qi += 1
-            else:  # I
-                top.append("-")
-                bot.append(decode_fn(s[si : si + 1]))
-                mid.append(" ")
-                si += 1
-        return "".join(top), "".join(mid), "".join(bot)
+        """Render (query_row, midline, subject_row) for display.
+
+        ``decode_fn`` maps a code array to one ASCII character a code. It is
+        called once a row, on the aligned span of each sequence; the letters
+        are scattered into the columns that consume a residue (``M`` and
+        ``D`` for the query, ``M`` and ``I`` for the subject), with ``-`` in
+        the rest. The midline is ``|`` where an ``M`` column pairs equal
+        letters and a space elsewhere.
+        """
+        if not self.cigar:
+            return "", "", ""
+        ops = np.frombuffer(self.cigar.encode("ascii"), np.uint8)
+        top = _display_row(
+            decode_fn(q[self.q_begin : self.q_end]),
+            (ops == ord("M")) | (ops == ord("D")), "query",
+        )
+        bot = _display_row(
+            decode_fn(s[self.s_begin : self.s_end]), ops != ord("D"), "subject"
+        )
+        mid = np.full(len(ops), ord(" "), np.uint8)
+        mid[(ops == ord("M")) & (top == bot)] = ord("|")
+        return tuple(row.tobytes().decode("ascii") for row in (top, mid, bot))
+
+
+def _display_row(letters: str, takes: np.ndarray, name: str) -> np.ndarray:
+    """One display row as bytes: ``letters`` in the ``takes`` columns, ``-`` elsewhere."""
+    got = np.frombuffer(letters.encode("ascii"), np.uint8)
+    need = int(np.count_nonzero(takes))
+    if len(got) != need:
+        raise ValueError(
+            f"the {name} span decodes to {len(got)} letters, but the cigar "
+            f"consumes {need}"
+        )
+    row = np.full(len(takes), ord("-"), np.uint8)
+    row[takes] = got
+    return row
 
 
 def _traceback_from(

@@ -113,6 +113,122 @@ def test_oracle_matches():
     assert aligner.MATRIX_CELL_LIMIT == j_aligner.MATRIX_CELL_LIMIT
 
 
+AA, NT = constants.SymType.AMINOACID, constants.SymType.NUCLEOTIDE
+# The human and chimpanzee mitochondrial genomes' lengths, and a count of
+# paired columns that gives their NW alignment 16,632 columns in all.
+MITO_M, MITO_N, MITO_MATCHED = 16569, 16554, 16491
+
+
+def _decoders(st, folded):
+    """Each package's own ``alphabet.decode``; ``folded`` first maps every
+    code past the standard residues (B, Z, X, * or the IUPAC ambiguity
+    codes) to X or N, so that two different codes decode to one letter."""
+    first, to = (20, alphabet.AA_X) if st is AA else (4, alphabet.NT_N)
+    fold = (lambda c: np.where(c >= first, to, c)) if folded else (lambda c: c)
+    return (lambda c: alphabet.decode(fold(c), st),
+            lambda c: j_alphabet.decode(fold(c), _ref(st)))
+
+
+def _planted_pair(rng, top):
+    """A query and a subject that share a mutated core with one indel between
+    random flanks, so that a local alignment begins inside both."""
+    core = rng.integers(0, top, 40)
+    mutated = np.where(rng.random(40) < 0.15, rng.integers(0, top, 40), core)
+    mutated = np.concatenate([mutated[:12], mutated[14:25], rng.integers(0, top, 2), mutated[25:]])
+    flank = lambda: rng.integers(0, top, int(rng.integers(8, 16)))
+    q = np.concatenate([flank(), core, flank()]).astype(np.uint8)
+    s = np.concatenate([flank(), mutated, flank()]).astype(np.uint8)
+    return q, s
+
+
+def _mito_cigar(rng):
+    """A drawn NW cigar at the mitochondrial pair's lengths: 16,632 columns."""
+    ops = np.array(list("M" * MITO_MATCHED + "D" * (MITO_M - MITO_MATCHED)
+                        + "I" * (MITO_N - MITO_MATCHED)))
+    return "".join(rng.permutation(ops))
+
+
+def _display_case(name):
+    """(symtype, query, subject, the port's Traceback, the reference's
+    Traceback, whether codes are folded) of one display case."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    kind, _, alpha = name.partition("-")
+    st = AA if alpha == "aa" else NT
+    top = len(constants.AA_ALPHABET if st is AA else constants.NT_ALPHABET)
+    if kind in ("sw", "nw"):
+        q, s = _planted_pair(rng, top)
+        sub = (matrices.builtin("BLOSUM62") if st is AA
+               else matrices.constant_scoring(5, -4, NT)).scores
+        fn = f"{kind}_align"
+        mine, theirs = getattr(oracle, fn)(q, s, sub, 10, 1), getattr(j_oracle, fn)(q, s, sub, 10, 1)
+        if kind == "sw":
+            assert mine.q_begin > 0 and mine.s_begin > 0
+        return st, q, s, mine, theirs, False
+    if kind == "mito":
+        q = rng.integers(0, top, MITO_M).astype(np.uint8)
+        s = rng.integers(0, top, MITO_N).astype(np.uint8)
+        fields = (0, 0, MITO_M, 0, MITO_N, _mito_cigar(rng))
+    elif kind == "folded":
+        # M columns that pair two different codes of one folded letter.
+        q, s = ([0, 20, 21, 22, 23, 4, 20], [0, 22, 23, 20, 21, 9, 3]) if st is AA else (
+            [0, 4, 5, 14, 13, 2, 6], [0, 14, 7, 8, 9, 1, 3])
+        q, s = np.array(q, np.uint8), np.array(s, np.uint8)
+        fields = (0, 0, 7, 0, 7, "MMMMMDMI")
+    else:
+        q = rng.integers(0, top, 20).astype(np.uint8)
+        s = rng.integers(0, top, 20).astype(np.uint8)
+        fields = {"empty": (0, 3, 3, 5, 5, ""), "alld": (-20, 2, 12, 3, 3, "D" * 10),
+                  "alli": (-20, 4, 4, 1, 11, "I" * 10)}[kind]
+    return st, q, s, oracle.Traceback(*fields), j_oracle.Traceback(*fields), kind == "folded"
+
+
+@pytest.mark.parametrize("name", ["sw-aa", "sw-nt", "nw-aa", "nw-nt", "empty-aa", "alld-aa",
+                                  "alli-nt", "folded-aa", "folded-nt", "mito-nt"])
+def test_aligned_strings_match_reference(name):
+    """The display rows equal the JAX package's on the same Traceback fields
+    and codes, each decoded with its own package's ``alphabet.decode``."""
+    st, q, s, mine, theirs, folded = _display_case(name)
+    assert (mine.score, mine.q_begin, mine.q_end, mine.s_begin, mine.s_end, mine.cigar) == (
+        theirs.score, theirs.q_begin, theirs.q_end, theirs.s_begin, theirs.s_end, theirs.cigar)
+    dec, j_dec = _decoders(st, folded)
+    rows = mine.aligned_strings(q, s, dec)
+    assert rows == theirs.aligned_strings(q, s, j_dec)
+    assert all(type(r) is str and len(r) == len(mine.cigar) for r in rows)
+    if folded:
+        assert rows[1] == "|||||   "
+        assert mine.aligned_strings(q, s, _decoders(st, False)[0])[1] == "|       "
+
+
+@pytest.mark.parametrize("columns", [0, 1, 10, MITO_M + MITO_N - MITO_MATCHED])
+def test_aligned_strings_decodes_once_a_row(columns):
+    """``decode_fn`` runs at most once a row, whatever the alignment's length."""
+    rng = np.random.default_rng(columns)
+    cigar = _mito_cigar(rng)[:columns]
+    m, n = sum(op != "I" for op in cigar), sum(op != "D" for op in cigar)
+    q = rng.integers(0, 15, m + 2).astype(np.uint8)
+    s = rng.integers(0, 15, n + 1).astype(np.uint8)
+    calls = []
+
+    def counting(codes):
+        calls.append(len(codes))
+        return alphabet.decode(codes, NT)
+
+    tb = oracle.Traceback(0, 2, 2 + m, 1, 1 + n, cigar)
+    rows = tb.aligned_strings(q, s, counting)
+    assert len(calls) <= 2
+    assert rows == j_oracle.Traceback(0, 2, 2 + m, 1, 1 + n, cigar).aligned_strings(
+        q, s, lambda c: j_alphabet.decode(c, j_constants.SymType.NUCLEOTIDE))
+
+
+def test_aligned_strings_rejects_span_the_cigar_does_not_cover():
+    q = np.zeros(10, np.uint8)
+    dec = lambda c: alphabet.decode(c, NT)
+    with pytest.raises(ValueError, match="query span"):
+        oracle.Traceback(0, 0, 5, 0, 4, "MMMDI").aligned_strings(q, q, dec)
+    with pytest.raises(ValueError, match="subject span"):
+        oracle.Traceback(0, 0, 4, 0, 5, "MMMDI").aligned_strings(q, q, dec)
+
+
 @pytest.mark.parametrize("name,symtype", [("proteins.fas", "AMINOACID"),
                                           ("nucleotides.fas", "NUCLEOTIDE")])
 def test_sequence_db_packing_matches(tmp_path, name, symtype):
