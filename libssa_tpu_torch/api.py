@@ -308,8 +308,11 @@ class SSAContext:
             self._translated_db = self.db.translated(self.d_gencode)
         return self._translated_db
 
-    def _search_sequences(self, query: Query) -> list[tuple[str, np.ndarray]]:
-        """Query sequences in the matrix alphabet (frames if translated)."""
+    def _search_sequences(
+        self, query: Query, stats: SearchStats = None
+    ) -> list[tuple[str, np.ndarray]]:
+        """Query sequences in the matrix alphabet (frames if translated; the
+        translation in a ``translate`` span of ``stats``)."""
         mt = self.matrix.symtype
         if query.symtype is mt:
             return query.sequences
@@ -320,17 +323,20 @@ class SSAContext:
             )
         raw = query.raw if query.raw is not None else query.sequences[0][1]
         out = []
-        if self.strands & Strand.FORWARD:
-            for f in range(3):
-                aa = alphabet.translate(raw[f:], self.q_gencode)
-                if len(aa):
-                    out.append((f"+{f}", aa))
-        if self.strands & Strand.REVERSE:
-            rc = alphabet.reverse_complement(raw)
-            for f in range(3):
-                aa = alphabet.translate(rc[f:], self.q_gencode)
-                if len(aa):
-                    out.append((f"-{f}", aa))
+        with span(stats, "translate") as rec:
+            if self.strands & Strand.FORWARD:
+                for f in range(3):
+                    aa = alphabet.translate(raw[f:], self.q_gencode)
+                    if len(aa):
+                        out.append((f"+{f}", aa))
+            if self.strands & Strand.REVERSE:
+                rc = alphabet.reverse_complement(raw)
+                for f in range(3):
+                    aa = alphabet.translate(rc[f:], self.q_gencode)
+                    if len(aa):
+                        out.append((f"-{f}", aa))
+            if rec is not None:
+                rec.counts["frames"] = len(out)
         if not out:
             raise ValueError("query too short to translate (needs >= 3 bases)")
         return out
@@ -429,7 +435,7 @@ class SSAContext:
         search_db, orig_ids, frame_labels = self._search_db()
         # An entry's score is its best over the query's strands/frames
         # (first listed wins ties).
-        q_seqs = self._search_sequences(query)
+        q_seqs = self._search_sequences(query, stats)
 
         if len(q_seqs) == 1 and orig_ids is None:
             # Plain single-sequence search: the engine's device-side top-k.
@@ -569,7 +575,7 @@ class SSAContext:
         stats = SearchStats()
         with span(stats, "api.align_pair"):
             sc = alphabet.encode(subject, self.matrix.symtype)
-            q_seqs = self._search_sequences(query)
+            q_seqs = self._search_sequences(query, stats)
             if mode is ComputeMode.SCORE:
                 from .ops.longpair import longpair_score
 

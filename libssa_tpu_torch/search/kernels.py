@@ -16,6 +16,7 @@ reduced: first frame on ties, then the lowest entry per record, then
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops import interseq, interseq_cuda
@@ -209,22 +210,36 @@ def stage_sweep(
         out = torch.cat([s_m[order][:kk], i_m[order][:kk].long(), packed])
         return out, s_m, i_m
 
-    def sweep_reduced(profiles, stacks, m_reals, group_of, k: int, n_frames: int):
+    def sweep_reduced(profiles, stacks, m_reals, group_of, k: int, n_frames: int,
+                      stats=None):
         """Frame-fanout sweep reduced to ONE top-k list on the device.
 
         Best over frames per DB entry (first frame on ties), best entry per
-        source record (``group_of``: entry id -> record id; lowest entry on
-        ties), then (score desc, record asc). Returns ``(top_s, top_rec,
-        top_entry, top_frame, any_f, n_flagged)``; rows past the valid
-        candidates carry INVALID records.
+        source record (``group_of``: entry id -> record id, None when each
+        entry is its own record; lowest entry on ties), then (score desc,
+        record asc). Returns ``(top_s, top_rec, top_entry, top_frame, any_f,
+        n_flagged)``; rows past the valid candidates carry INVALID records.
+        Every group's pair indexes go up in one blocking copy before the
+        first launch, in a ``device.wait`` span of ``stats``: a blocking copy
+        a group waits for the launch before it and leaves the card idle
+        while the host sets up the next.
         """
         dev = profiles.device
         mrs = m_real_index(m_reals, profiles)
         parts = []
         any_f = torch.zeros((), dtype=torch.bool, device=dev)
         n_flagged = torch.zeros((), dtype=torch.int64, device=dev)
+        # A frame's tie rank in the low 3 bits of its score key, the first
+        # frame's the highest: one max over the frames finds both the best
+        # score and the first frame that reaches it.
+        rank = torch.arange(n_frames - 1, -1, -1, device=dev).view(n_frames, 1, 1)
+        with span(stats, "device.wait"):
+            index = _index(np.concatenate([a for *_, iq, ic in stacks for a in (iq, ic)]), dev)
+        at = 0
         for codes, lens, ids, iq, ic in stacks:
-            iq_d, ic_d = _index(iq, dev), _index(ic, dev)
+            P = len(iq)
+            iq_d, ic_d = index[at : at + P], index[at + P : at + 2 * P]
+            at += 2 * P
             s, hi, lo = run(profiles, codes, lens, iq_d, ic_d, mrs)  # (F*C, B)
             nC = s.shape[0] // n_frames
             B = s.shape[1]
@@ -239,17 +254,16 @@ def stage_sweep(
                 # flagged in ANY frame.
                 fn_any = fn_.view(n_frames, nC, B).any(dim=0)
                 n_flagged = n_flagged + (fn_any & valid).sum()
-            s3 = s.view(n_frames, nC, B)
-            fmax = s3.amax(dim=0)
-            farg = torch.zeros((nC, B), dtype=torch.int32, device=dev)
-            for fi in range(n_frames - 1, -1, -1):  # first max wins
-                farg = torch.where(s3[fi] == fmax, fi, farg)
-            rec_rows = torch.where(
+            kmax = (s.view(n_frames, nC, B) * 8 + rank).amax(dim=0)
+            fmax = torch.div(kmax, 8, rounding_mode="floor")
+            farg = (n_frames - 1) - torch.remainder(kmax, 8)
+            e_rows = torch.where(valid, ids_rows, INVALID)
+            rec_rows = e_rows if group_of is None else torch.where(
                 valid, group_of[ids_rows.clamp(min=0).long()], INVALID
             )
             parts.append((
                 torch.where(valid, fmax, NEG).reshape(-1),
-                torch.where(valid, ids_rows, INVALID).reshape(-1),
+                e_rows.reshape(-1),
                 rec_rows.reshape(-1),
                 farg.reshape(-1),
             ))

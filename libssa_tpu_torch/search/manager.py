@@ -659,48 +659,49 @@ class SearchEngine:
                 "single-query search()"
             )
         t0 = time.perf_counter()
-        mq = max(len(f) + ((-len(f)) % 32) for f in frames)
-        prof_stack = self._profiles(frames, rows=mq)
-        m_reals = [len(f) for f in frames]
-        if group_of is None:
-            group_of = np.arange(len(self.db), dtype=np.int32)
-        group_dev = torch.as_tensor(
-            np.asarray(group_of, dtype=np.int32)
-        ).to(self.device)
-
-        grouped, dev_stacks = self._stacks_on_device(self.db, p.batch_size)
-        _, _, _, sweep_reduced, _ = self._sweeps(
-            local, p.dtype, F32_WINDOW if p.dtype == "float32" else None, nlimit
-        )
         nf = len(frames)
-        stacks = []
-        for codes, lens, ids_d in dev_stacks:
-            nc = int(codes.shape[0])
-            iq = np.repeat(np.arange(nf, dtype=np.int32), nc)
-            ic = np.tile(np.arange(nc, dtype=np.int32), nf)
-            stacks.append((codes, lens, ids_d, iq, ic))
-        top_s, top_r, top_e, top_f, any_f, n_fl = sweep_reduced(
-            prof_stack, tuple(stacks), m_reals, group_dev, k, nf
-        )
-        stats.dispatches += 1
-        fetched = torch.cat(
-            [top_s.long(), top_r.long(), top_e.long(), top_f.long(),
-             any_f.long().reshape(1), n_fl.long().reshape(1)]
-        ).cpu().numpy()
-        stats.fetches += 1
-        for f in frames:
-            stats.cells += len(f) * self.db.total_residues
-        stats.subjects += len(self.db)
-        stats.seconds += time.perf_counter() - t0
-        if nlimit is not None and fetched[-1]:
-            key = f"limit>{nlimit}/entries"
-            stats.rescored[key] = stats.rescored.get(key, 0) + int(fetched[-1])
-        if fetched[-2]:
-            return None  # f32-window escapee: caller takes the exact path
-        kk = (len(fetched) - 2) // 4
-        s, r, e, f = (fetched[i * kk : (i + 1) * kk] for i in range(4))
-        valid = r != 2**31 - 1
-        return (
-            s[valid], r[valid].astype(np.int32), e[valid].astype(np.int32),
-            f[valid].astype(np.int32),
-        )
+        mq = max(len(f) + ((-len(f)) % 32) for f in frames)
+        with span(stats, "search.reduced", frames=nf, rows=mq):
+            prof_stack = self._profiles(frames, rows=mq)
+            m_reals = [len(f) for f in frames]
+            group_dev = None if group_of is None else torch.as_tensor(
+                np.asarray(group_of, dtype=np.int32)
+            ).to(self.device)
+
+            grouped, dev_stacks = self._stacks_on_device(self.db, p.batch_size)
+            _, _, _, sweep_reduced, _ = self._sweeps(
+                local, p.dtype, F32_WINDOW if p.dtype == "float32" else None, nlimit
+            )
+            stacks = []
+            for codes, lens, ids_d in dev_stacks:
+                nc = int(codes.shape[0])
+                iq = np.repeat(np.arange(nf, dtype=np.int32), nc)
+                ic = np.tile(np.arange(nc, dtype=np.int32), nf)
+                stacks.append((codes, lens, ids_d, iq, ic))
+            top_s, top_r, top_e, top_f, any_f, n_fl = sweep_reduced(
+                prof_stack, tuple(stacks), m_reals, group_dev, k, nf, stats
+            )
+            stats.dispatches += 1
+            fetched = torch.cat(
+                [top_s.long(), top_r.long(), top_e.long(), top_f.long(),
+                 any_f.long().reshape(1), n_fl.long().reshape(1)]
+            )
+            with span(stats, "device.wait"):
+                fetched = fetched.cpu().numpy()
+            stats.fetches += 1
+            for f in frames:
+                stats.cells += len(f) * self.db.total_residues
+            stats.subjects += len(self.db)
+            stats.seconds += time.perf_counter() - t0
+            if nlimit is not None and fetched[-1]:
+                key = f"limit>{nlimit}/entries"
+                stats.rescored[key] = stats.rescored.get(key, 0) + int(fetched[-1])
+            if fetched[-2]:
+                return None  # f32-window escapee: caller takes the exact path
+            kk = (len(fetched) - 2) // 4
+            s, r, e, f = (fetched[i * kk : (i + 1) * kk] for i in range(4))
+            valid = r != 2**31 - 1
+            return (
+                s[valid], r[valid].astype(np.int32), e[valid].astype(np.int32),
+                f[valid].astype(np.int32),
+            )

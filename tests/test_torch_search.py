@@ -341,3 +341,22 @@ def test_stacks_to_device_layout(small_db):
         np.testing.assert_array_equal(tc.numpy(), c)
         np.testing.assert_array_equal(ti.numpy(), np.stack(sids))
         assert tc.shape == c.shape and tl.shape == l.shape
+
+
+@pytest.mark.parametrize("local", [True, False], ids=["sw", "nw"])
+def test_sweep_reduced_identity_records(small_db, local):
+    """``group_of=None`` (each entry its own record) gives what the identity
+    map gives, in the reference and in the port; frames tie on every entry."""
+    db, seqs = small_db
+    grouped = db.grouped_stacks(8, 16)
+    frames = [seqs[2], seqs[2], seqs[2], seqs[5][:30], seqs[2], seqs[0]]
+    profs = np.stack([make_padded_profile(f, PADDED, rows=96) for f in frames])
+    mrs = [len(f) for f in frames]
+    ident = np.arange(len(db), dtype=np.int32)
+    (*_, jred, _), (*_, tred, _) = _sweeps(local, eff_limit=2**24 - 1, nlimit=255)
+    want = jred(jnp.asarray(profs), _pair_stacks(grouped, 6, True),
+                jnp.asarray(mrs, jnp.int32), jnp.asarray(ident), 10, 6)
+    got = tred(torch.as_tensor(profs), _pair_stacks(grouped, 6, False), mrs, None, 10, 6)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert set(got[3].tolist()) <= {0, 3, 5}  # the first of the tied frames
