@@ -7,12 +7,13 @@ Drives the port's main path — database search through ``SearchEngine`` and
 (500,000 lognormal subjects, about 174M residues). Phases, one line each:
 
 1. build K1 (``libssa_tpu_torch/csrc/interseq.cu``) with nvcc, and beside
-   it K3, K2, the probes (``csrc/probes.cu``, ``csrc/lp_rowsweep.cu``), K3's
-   stage-cut builds and the parts of ``csrc/interseq_variants.cu``, one
-   nvcc each, all in parallel; K1's registers, local bytes and blocks an SM
-   for each instantiation at 1, 8 and 16 warps down the query, and K2's and
-   K3's at each band height and warps count a block whose shared memory
-   fits;
+   it K3, K2, the leaf kernel (``csrc/leafbatch.cu``), the probes
+   (``csrc/probes.cu``, ``csrc/lp_rowsweep.cu``), K3's stage-cut builds and
+   the parts of ``csrc/interseq_variants.cu``, one nvcc each, all in
+   parallel; K1's registers, local bytes and blocks an SM for each
+   instantiation at 1, 8 and 16 warps down the query, K2's and K3's at each
+   band height and warps count a block whose shared memory fits, and the
+   leaf kernel's;
 2. K1 against its plain PyTorch version on random inputs (exact equality),
    at every warps count and at the wrapper's choice;
 3. the 500k-subject search: 8 queries through ``search_many`` (SW, k=10),
@@ -62,7 +63,8 @@ Drives the port's main path — database search through ``SearchEngine`` and
     K2 design's times; and int64 at (a), equal to int32;
 11. the linear-space traceback at full width through
     ``SSAContext(device="cuda").align_pair(..., mode=ComputeMode.ALIGNMENT)``
-    (Myers-Miller levels on K2, leaves on the native host solver): (a)
+    (Myers-Miller levels on K2, each pass's leaves in one launch of the leaf
+    kernel, ``csrc/leafbatch.cu``): (a)
     phase 8a's 16,384 x 16,384 pair, SW and NW, score, coordinates and
     cigar equal to ``SSAContext(device="cpu")`` (NumPy passes); (b) a
     100,000 x 100,000 random protein pair, BLOSUM62 11/1, SW and NW, whose
@@ -129,7 +131,13 @@ Drives the port's main path — database search through ``SearchEngine`` and
     up to 6,000 x 6,000 (K2's levels past 16M cells), hit lists equal field
     by field; (f) ``examples/torch_database_search.py`` and
     ``examples/torch_genome_pair.py`` as subprocesses, exit 0 with every
-    section's line.
+    section's line; (g) the leaf kernel (``csrc/leafbatch.cu``) against its
+    plain version (the host leaf solve, ``csrc/leafalign.cpp``): batches of
+    1-66 drawn leaves up to ``LEAF_CELLS`` cells (one of exactly
+    ``LEAF_CELLS``, one of two rows, a batch of one leaf), int32 and int64;
+    then ``mito_align``'s pair, its ops string with the leaves on the card
+    equal to the one with them on the host, and the kernel's time at that
+    pair's leaf batch beside the plain version's and its bound.
 
 The second-to-last line is a JSON object with each kernel's launches by
 the main path, its largest difference from the plain version, its time,
@@ -159,6 +167,7 @@ K3_REPLACES = "libssa_tpu/ops/longpair_pallas.py:96"
 K3_SOURCE = "libssa_tpu_torch/csrc/longpair.cu"
 K2_REPLACES = "libssa_tpu/ops/ring_block_pallas.py:68"
 K2_SOURCE = "libssa_tpu_torch/csrc/ring_block.cu"
+LEAF_SOURCE = "libssa_tpu_torch/csrc/leafbatch.cu"
 PROBES_SOURCE = "libssa_tpu_torch/csrc/probes.cu"
 ROWSWEEP_SOURCE = "libssa_tpu_torch/csrc/lp_rowsweep.cu"
 VARIANTS_SOURCE = "libssa_tpu_torch/csrc/interseq_variants.cu"
@@ -602,7 +611,7 @@ def build_kernels():
     import concurrent.futures
     import functools
 
-    from libssa_tpu_torch.ops import interseq_cuda, longpair_cuda, ring_block_cuda
+    from libssa_tpu_torch.ops import interseq_cuda, leaf_cuda, longpair_cuda, ring_block_cuda
 
     t0 = time.perf_counter()
 
@@ -617,16 +626,18 @@ def build_kernels():
             for v in r3_banded_bisect.CUTS if v != "full"]
     parts = [functools.partial(_interseq_variants.lib, p)
              for p in range(_interseq_variants.PARTS)]
-    libs = (interseq_cuda._lib, longpair_cuda._lib, ring_block_cuda._lib,
+    libs = (interseq_cuda._lib, longpair_cuda._lib, ring_block_cuda._lib, leaf_cuda._lib,
             functools.partial(_common.lib, "chain"), functools.partial(_common.lib, "tile"),
             r3_lp_bisect._lib, *parts, *cuts)
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
-        t_k1, t_k3, t_k2, t_chain, t_tile, t_rs, *t_rest = pool.map(build, libs)
+        t_k1, t_k3, t_k2, t_leaf, t_chain, t_tile, t_rs, *t_rest = pool.map(build, libs)
     t_parts, t_cuts = t_rest[:len(parts)], t_rest[len(parts):]
-    say(f"phase 1 build K1 ({K1_SOURCE}), K3 ({K3_SOURCE}), K2 ({K2_SOURCE}), the probes "
+    say(f"phase 1 build K1 ({K1_SOURCE}), K3 ({K3_SOURCE}), K2 ({K2_SOURCE}), the leaf "
+        f"kernel ({LEAF_SOURCE}), the probes "
         f"({PROBES_SOURCE} in two builds, {ROWSWEEP_SOURCE}), K3's {len(cuts)} stage-cut "
         f"builds and K1's variants ({VARIANTS_SOURCE} in {len(parts)} parts), nvcc sm_90a "
-        f"in parallel: ok, K1 {t_k1:.1f} s, K3 {t_k3:.1f} s, K2 {t_k2:.1f} s, probes "
+        f"in parallel: ok, K1 {t_k1:.1f} s, K3 {t_k3:.1f} s, K2 {t_k2:.1f} s, leaf kernel "
+        f"{t_leaf:.1f} s, probes "
         f"{t_chain:.1f} s (chain) and {t_tile:.1f} s (tile), row sweep {t_rs:.1f} s, stage "
         f"cuts {max(t_cuts):.1f} s, K1 variants "
         + " ".join(f"{t:.1f}" for t in t_parts) + " s")
@@ -656,6 +667,9 @@ def build_kernels():
                 rows.append(f"{'int64' if wide else 'int32'} {'SW' if local else 'NW'} rows "
                             f"{ch} warps {w}: {a['regs']},{a['local']},{a['blocks_an_sm']}")
     say("phase 1 K3 instantiations (registers, local bytes, blocks an SM): " + "; ".join(rows))
+    say("phase 1 leaf kernel (registers, local bytes): " + "; ".join(
+        f"{'int64' if wide else 'int32'} {a['regs']},{a['local']}"
+        for wide, a in ((w, leaf_cuda.attrs(w)) for w in (False, True))))
 
 
 def k3_configs(itemsize):
@@ -2037,7 +2051,7 @@ def phase15(dev) -> int:
 # and the draw's index it prints. The counts are fixed, sized on one H100
 # so that the phase takes about 120 s.
 DRAW_SEED = 1600
-DRAWS = {"a": 120, "b": 50, "c": 300, "e": 28}
+DRAWS = {"a": 120, "b": 50, "c": 300, "e": 28, "g": 40}
 DRAW_REPEATS = 3  # launches of each (b) and (c) draw: a racy hand-off shows only some of the time
 K1_DRAW_CELLS = 5 * 10**7  # (a): pairs x rows x columns x lanes at most, for the plain version's time
 # Sizes at the kernels' edges: a K1 strip is 32 rows (16 in int64), a K2/K3
@@ -2392,6 +2406,118 @@ def phase16e(dev) -> tuple[int, int, int]:
     return DRAWS["e"], sharded, huge
 
 
+def phase16g(dev) -> dict:
+    """The leaf kernel on the card against its plain version (the host leaf
+    solve, csrc/leafalign.cpp, leaf by leaf) over drawn batches, int32 and
+    int64; then mito_align's pair (the benchmark's generator, traffic file
+    and configuration) aligned on the card with its leaves in the kernel and
+    with them on the host, byte for byte, and the kernel timed at that
+    pair's leaf batch. Returns the kernels line's entry."""
+    import torch
+
+    from libssa_tpu_torch.ops import leaf_cuda
+    from libssa_tpu_torch.ops.mm_device import DevicePair
+    from libssa_tpu_torch.search import hirschberg
+    from ssabench.mixes.pair import Mix
+
+    mats = draw_matrices()
+    seed = DRAW_SEED + 7
+    rng = np.random.default_rng(seed)
+    cells_max = hirschberg.LEAF_CELLS
+    for i in range(DRAWS["g"]):
+        name = str(rng.choice(sorted(mats)))
+        mat, hi = mats[name]
+        Q, R = draw_gaps(rng)
+        g = Q - R
+        shapes = []
+        for _ in range(1 if i == 0 else draw_size(rng, 64)):  # draw 0: a batch of one leaf
+            m = max(2, draw_size(rng, 1024))
+            shapes.append((m, draw_size(rng, min(cells_max // m, 4000))))
+        if i == 1:  # a leaf of exactly LEAF_CELLS and one of m = 2
+            shapes += [(1024, cells_max // 1024), (2, 4000)]
+        q = torch.as_tensor(rng.integers(0, hi, 5000).astype(np.uint8))
+        s = torch.as_tensor(rng.integers(0, hi, 5000).astype(np.uint8))
+        leaves = np.array([(int(rng.integers(0, 5001 - m)), m, int(rng.integers(0, 5001 - n)),
+                            n, g * int(rng.integers(2)), g * int(rng.integers(2)))
+                           for m, n in shapes], np.int64)
+        cost = torch.as_tensor(-mat.astype(np.int32))
+        want = leaf_cuda.unpack(leaf_cuda.leaf_batch_cuda(q, s, leaves, cost, g, R).numpy(),
+                                leaves)
+        for wide in (False, True):
+            got = leaf_cuda.leaf_batch_cuda(q.to(dev), s.to(dev), leaves, cost.to(dev), g, R,
+                                            wide=wide)
+            if leaf_cuda.unpack(got.cpu().numpy(), leaves) != want:
+                draw_fail("g", seed, i, f"leaf kernel differs: (m, n) {shapes} {name} Q={Q} "
+                          f"R={R} wide={wide}")
+
+    # mito_align's pair, as the cell makes it from a seed.
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ssabench")
+
+    def spec(kind, name):
+        with open(os.path.join(root, kind, f"{name}.json")) as fh:
+            return json.load(fh)
+
+    mix = Mix(spec("configs", "dna_pair_ednafull"), spec("traffic", "mito_align"),
+              2**31 + 16569, dev.type)
+    seen = []
+    solve = DevicePair.solve_leaves
+
+    def recorded(self, leaves):
+        seen.append((self, leaves))
+        return solve(self, leaves)
+
+    DevicePair.solve_leaves = recorded
+    try:
+        before = leaf_cuda.launches
+        on_card = mix._run()
+        launches = leaf_cuda.launches - before
+    finally:
+        DevicePair.solve_leaves = solve
+    plain = leaf_cuda.leaf_batch_cuda
+
+    def on_host(q_codes, s_codes, leaves, cost, g, h, **_):
+        return plain(q_codes.cpu(), s_codes.cpu(), leaves, cost.cpu(), g, h).to(dev)
+
+    leaf_cuda.leaf_batch_cuda = on_host
+    try:
+        on_host_tb = mix._run()
+    finally:
+        leaf_cuda.leaf_batch_cuda = plain
+    if (on_card.score, on_card.cigar) != (on_host_tb.score, on_host_tb.cigar):
+        fail(16, "16g mito_align's pair: the ops with the leaves on the card differ from "
+                 "the ops with them on the host")
+    dp, batch = max(seen, key=lambda x: len(x[1]))
+    table = np.array(batch, np.int64)
+    cells = int((table[:, 1] * table[:, 3]).sum())
+    g, h = dp.Q - dp.R, dp.R
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            leaf_cuda.leaf_batch_cuda(dp.q, dp.s, table, dp.cost, g, h, max_abs=dp.max_cost)
+        torch.cuda.synchronize()
+    t_kernel = sum(e.end_ns() - e.start_ns() for e in prof.profiler.kineto_results.events()
+                   if str(e.device_type()).endswith("CUDA") and "leaf_kernel" in e.name())
+    t_kernel /= 5 * 1e6
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        dp.solve_leaves(batch)
+        walls.append(1e3 * (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    leaf_cuda.leaf_batch_cuda(dp.q.cpu(), dp.s.cpu(), table, dp.cost.cpu(), g, h)
+    t_plain = 1e3 * (time.perf_counter() - t0)
+    nbytes = cells + int((table[:, 1] + table[:, 3]).sum()) * 2  # direction bytes, codes, ops
+    b = bound_ms(cells, CELL_NW, nbytes)
+    say(f"phase 16g mito_align's pair ({len(seen)} leaf batches, {launches} launches): ops "
+        f"equal with the leaves on the host; its largest batch, {len(batch)} leaves of "
+        f"{cells} cells: kernel {t_kernel:.3f} ms (profiler, 5 launches), solve_leaves "
+        f"(upload, launch, fetch) {min(walls):.3f}-{max(walls):.3f} ms, plain version "
+        f"{t_plain:.1f} ms, bound {b[0]:.4f} ms ({b[1]}), {card_line()}")
+    return {"name": "leaf batch (a Myers-Miller pass's leaves: fill and walk)", "route": "cuda",
+            "source": LEAF_SOURCE, "replaces": None, "launches": launches, "max_abs_err": 0,
+            "ms": t_kernel, "plain_ms": t_plain, "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": None}
+
+
 WALKTHROUGHS = {  # (f): each example and lines its output must hold
     "examples/torch_database_search.py": (
         "=== SW protein search", "=== NW global search", "=== Nucleotide search",
@@ -2419,8 +2545,9 @@ def phase16f() -> list[str]:
 
 
 def phase16(dev):
-    """K1, K2 and K3 over drawn inputs, the API end to end and the
-    walkthroughs, each part's draws and seconds on a line of its own."""
+    """K1, K2, K3 and the leaf kernel over drawn inputs, the API end to end
+    and the walkthroughs, each part's draws and seconds on a line of its
+    own; returns the leaf kernel's entry of the kernels line."""
     t_phase = time.perf_counter()
 
     def part(name, fn, what):
@@ -2441,7 +2568,12 @@ def phase16(dev):
          f"{DRAW_SEED + 5}), {r[1]} sharded, {r[2]} align_pair past 16M cells, hit lists "
          f"equal field by field")
     part("f", phase16f, lambda r: "walkthroughs exit 0 with every section: " + ", ".join(r))
+    leaf = {}
+    part("g", lambda: leaf.update(phase16g(dev)), lambda _: f"leaf kernel vs its plain "
+         f"version: {DRAWS['g']} draws (seed {DRAW_SEED + 7}) of 1-66 leaves, int32 and "
+         f"int64, equal")
     say(f"phase 16 drawn inputs: no difference; phase {time.perf_counter() - t_phase:.1f} s")
+    return leaf
 
 
 def bound_ms(cells: int, cell: tuple[float, float], nbytes: int) -> tuple[float, str]:
@@ -2482,7 +2614,7 @@ def main() -> int:
     k2_launches = phase11(dev) + ring_launches
     probe_entries = phase12(dev)
     variant_entries = phase13(dev)
-    phase16(dev)  # after every count of the main path is read
+    leaf_entry = phase16(dev)  # after every count of the main path is read
 
     # bound_ms at each timed shape: K1 at bench.py's kernel shape (subject
     # codes in, one score and range out per subject), K3 at 8a SW (codes in),
@@ -2525,7 +2657,7 @@ def main() -> int:
         "bound_ms": b_k2[0],
         "bound_by": b_k2[1],
         "library_ms": None,
-    }, *probe_entries, *variant_entries]}))
+    }, leaf_entry, *probe_entries, *variant_entries]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -23,6 +23,8 @@ reverse pass of every node; the boundary arrays are built with tensor
 ops on the device, t1/t2 are combined in int64 (a sum of two rows can pass
 the int32 bound when each row does not) and arg-minned there too (the
 first minimum, as ``np.argmin``), and the host fetches 4 integers a node.
+The leaves of a frontier pass are one launch of the leaf kernel
+(``solve_leaves``, ``ops/leaf_cuda.py``) and one fetch of their ops.
 
 Boundary mapping (min-cost -> score form): substitution = the matrix,
 penalties (Q, R); left column H[i][0] = -(tb + R*i); top row
@@ -41,7 +43,7 @@ import numpy as np
 import torch
 
 from ..util.profiling import span
-from . import ring_block, ring_block_cuda
+from . import leaf_cuda, ring_block, ring_block_cuda
 from .interseq import INT32_LIMIT
 from .longpair import score_bound
 
@@ -89,9 +91,11 @@ class DevicePair:
     JAX package).
 
     Counters: ``dispatches`` (K2 launches, each followed by one fetch),
-    ``levels`` (``divide_level`` calls) and ``seconds`` (wall time of those
-    calls, the fetch's wait for the device included). ``stats``, the
-    request's ``SearchStats`` where given, gets a ``device.wait`` span
+    ``levels`` (``divide_level`` calls), ``leaf_launches`` (``solve_leaves``
+    calls: one leaf-kernel launch and one fetch each) and ``seconds`` (wall
+    time of those calls, the fetch's wait for the device included).
+    ``stats``, the request's ``SearchStats`` where given, gets a
+    ``device.wait`` span
     around each fetch, and around the first upload after a launch (a
     blocking copy from host memory waits for the work queued before it).
     """
@@ -112,9 +116,12 @@ class DevicePair:
         self.q = torch.from_numpy(np.concatenate([q, q[::-1]])).to(self.device)
         self.s = torch.from_numpy(np.concatenate([s, s[::-1]])).to(self.device)
         self.matrix = torch.from_numpy(mat.astype(np.int32)).to(self.device)
+        self.cost = torch.from_numpy(-mat.astype(np.int32)).to(self.device)
+        self.max_cost = int(np.abs(mat).max())
         self.stats = stats
         self.dispatches = 0
         self.levels = 0
+        self.leaf_launches = 0
         self.seconds = 0.0
 
     def _jobs(self, q_off, m, s_off, n, reverse):
@@ -205,6 +212,25 @@ class DevicePair:
         self.levels += 1
         self.seconds += time.perf_counter() - t0
         return [tuple(r) for r in res]
+
+    def solve_leaves(self, leaves):
+        """The ops of every leaf of one frontier pass: one upload of the leaf
+        table, one launch, one fetch.
+
+        ``leaves``: ``[(q_off, m, s_off, n, tb, te)]``, windows into the
+        forward codes in absolute pair coordinates, m >= 1 and n >= 1, the
+        boundary opens tb and te each 0 or Q - R. Returns each leaf's ops as
+        a string of 'M', 'D' and 'I', as ``hirschberg._ops_leaf`` gives them.
+        """
+        t0 = time.perf_counter()
+        table = np.array(leaves, np.int64).reshape(-1, 6)
+        out = leaf_cuda.leaf_batch_cuda(self.q, self.s, table, self.cost, self.Q - self.R,
+                                        self.R, max_abs=self.max_cost)
+        with span(self.stats, "device.wait"):
+            out = out.cpu().numpy()  # the one fetch
+        self.leaf_launches += 1
+        self.seconds += time.perf_counter() - t0
+        return leaf_cuda.unpack(out, table)
 
     def mm_pass(self, q_off, m, s_off, n, tb_is_zero, reverse=False):
         """(CC, DD) int64 rows of one window, the device counterpart of

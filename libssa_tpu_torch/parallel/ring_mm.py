@@ -215,9 +215,7 @@ def ring_align_pair(
     into ``aligner_dispatches``, ``aligner_levels`` and
     ``aligner_device_seconds``.
     """
-    from ..search.hirschberg import (
-        _device_ok, _ops_score, _pad32, _warn_if_no_native_leaf, align_pair_linear,
-    )
+    from ..search.hirschberg import _device_ok, _ops_score, _pad32, align_pair_linear
     from .sharded import make_db_mesh
 
     mesh = mesh if mesh is not None else make_db_mesh()
@@ -239,8 +237,6 @@ def ring_align_pair(
     # The hand-off runs on this rank's first device, with the pair the ring
     # already uploaded there, where align_pair_linear would use a device.
     dev = rp.pairs[rp.device] if _device_ok(m, n, rp.device) else None
-    if dev is not None:
-        _warn_if_no_native_leaf()
     try:
         if local:
             best, ei, ej = rp.sw_end(m, n)

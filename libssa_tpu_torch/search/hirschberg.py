@@ -3,8 +3,10 @@
 The port of ``libssa_tpu/search/hirschberg.py``: the same NumPy passes,
 leaf solvers, recursion and tie-breaks, so scores, coordinates and cigars
 equal the JAX package's. Its device path is ``ops/mm_device.DevicePair``
-on K2, used on a CUDA device for pairs of at least ``DEVICE_MIN_CELLS``
-cells; on the CPU the NumPy passes run, as the reference runs there.
+(the divide levels on K2, each pass's leaves in one launch of the leaf
+kernel), used on a CUDA device for pairs of at least ``DEVICE_MIN_CELLS``
+cells; on the CPU the NumPy passes and the host leaf solve run, as the
+reference runs there.
 
 The full-matrix aligner (``aligner.py``) keeps O(m*n) traceback state —
 right for re-aligning top-k database hits (small, bounded), impossible for
@@ -242,31 +244,6 @@ def _ops_m1(q, s, cost, g, h, tb, te):
     return ["D"] + ["I"] * n
 
 
-_warned_no_native_leaf = False
-
-
-def _warn_if_no_native_leaf():
-    """One-time WARNING when a huge-pair traceback runs without the
-    native leaf solver: the Python leaf fill is about 10x slower, and the
-    degradation is otherwise silent."""
-    global _warned_no_native_leaf
-    if _warned_no_native_leaf:
-        return
-    from .leafnative import native_available
-
-    if not native_available():
-        from ..constants import OutputMode
-        from ..util.logging import log
-
-        log(
-            OutputMode.WARNING,
-            "huge-pair traceback without the native leaf solver "
-            "(csrc/leafalign.cpp did not build): leaf fills fall back "
-            "to Python at ~10x the wall time",
-        )
-    _warned_no_native_leaf = True
-
-
 def _ops_leaf(q, s, cost, g, h, tb, te):
     """Leaf solve: the native C++ fill when built, else ``_ops_small``.
 
@@ -303,11 +280,14 @@ def _nw_ops(q, s, cost, g, h, tb, te, dev=None, q0=0, s0=0, stats=None):
     (``DevicePair.divide_level`` — forward+reverse rows, t1/t2 combine,
     and argmin on device; the fetch is 4 scalars per node), and
     subproblems at or below LEAF_CELLS solve directly with the
-    direction-matrix fill. ``q0``/``s0``: this rectangle's offset in the
-    full pair (``dev`` windows are absolute). Levels below
-    DEVICE_MIN_CELLS run the host NumPy passes instead — cheaper than a
-    round trip. ``stats``: the request's ``SearchStats``, which gets an
-    ``mm.level`` span for each level's divide passes.
+    direction-matrix fill: with ``dev``, every leaf of a pass in one
+    launch on the device (``DevicePair.solve_leaves``), else one by one on
+    the host (``_ops_leaf``), the same ops either way. ``q0``/``s0``: this
+    rectangle's offset in the full pair (``dev`` windows are absolute).
+    Levels below DEVICE_MIN_CELLS run the host NumPy passes instead —
+    cheaper than a round trip. ``stats``: the request's ``SearchStats``,
+    which gets an ``mm.level`` span for each level's divide passes and an
+    ``mm.leaves`` span for each pass's leaves.
     """
     items = [_Node(0, len(q), 0, len(s), tb, te)]
     while True:
@@ -316,21 +296,36 @@ def _nw_ops(q, s, cost, g, h, tb, te, dev=None, q0=0, s0=0, stats=None):
         ]
         if not pending:
             break
-        requests = []
+        requests, leaves = [], []
         for i, nd in pending:
             m, n = nd.qe - nd.qs, nd.se - nd.ss
-            qq = q[nd.qs : nd.qe]
-            ss_ = s[nd.ss : nd.se]
             if n == 0:
                 items[i] = ["D"] * m
             elif m == 0:
                 items[i] = ["I"] * n
             elif m > 1 and m * n <= LEAF_CELLS:
-                items[i] = _ops_leaf(qq, ss_, cost, g, h, nd.tb, nd.te)
+                leaves.append((i, nd))
             elif m == 1:
-                items[i] = _ops_m1(qq, ss_, cost, g, h, nd.tb, nd.te)
+                items[i] = _ops_m1(q[nd.qs : nd.qe], s[nd.ss : nd.se], cost, g, h,
+                                   nd.tb, nd.te)
             else:
                 requests.append((i, nd))
+        if leaves:
+            cells = sum((nd.qe - nd.qs) * (nd.se - nd.ss) for _, nd in leaves)
+            with span(stats, "mm.leaves", leaves=len(leaves), cells=cells):
+                if dev is not None:
+                    solved = dev.solve_leaves([
+                        (q0 + nd.qs, nd.qe - nd.qs, s0 + nd.ss, nd.se - nd.ss, nd.tb, nd.te)
+                        for _, nd in leaves
+                    ])
+                else:
+                    solved = [
+                        _ops_leaf(q[nd.qs : nd.qe], s[nd.ss : nd.se], cost, g, h,
+                                  nd.tb, nd.te)
+                        for _, nd in leaves
+                    ]
+            for (i, _), ops in zip(leaves, solved):
+                items[i] = ops
         if requests:
             cells = sum((nd.qe - nd.qs) * (nd.se - nd.ss) for _, nd in requests)
             on_device = dev is not None and cells >= DEVICE_MIN_CELLS
@@ -472,9 +467,6 @@ def align_pair_linear(
     cost = -sub.astype(np.int64)
     with span(stats, "mm.align"):
         dev = _make_device_pair(q, s, sub, Q, R, torch.device(device), stats)
-        if dev is not None:
-            _warn_if_no_native_leaf()
-
         try:
             if local:
                 if dev is not None:

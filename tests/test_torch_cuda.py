@@ -23,6 +23,7 @@ from libssa_tpu_torch.io.db import PAD_CODE, SequenceDB
 from libssa_tpu_torch.ops import (
     interseq,
     interseq_cuda,
+    leaf_cuda,
     longpair,
     longpair_cuda,
     ring_block,
@@ -460,6 +461,90 @@ def test_device_pair_on_card_equals_cpu(dev, local, monkeypatch):
     assert st.aligner_levels > 0
     assert (got.score, got.q_begin, got.s_begin, got.cigar) == (
         want.score, want.q_begin, want.s_begin, want.cigar)
+
+
+def _leaf_batch(rng, n_leaves, g, hi, edge_cases):
+    """Code buffers and drawn leaves of m = 2 .. 1024 rows and at most
+    LEAF_CELLS cells; ``edge_cases`` adds a leaf of exactly LEAF_CELLS
+    (1024 x 1024) and one of m = 2 across 4,000 columns."""
+    q = rng.integers(0, hi, 5000).astype(np.uint8)
+    s = rng.integers(0, hi, 5000).astype(np.uint8)
+    shapes = []
+    for _ in range(n_leaves):
+        m = int(rng.integers(2, 1025))
+        shapes.append((m, int(rng.integers(1, min(hirschberg.LEAF_CELLS // m, 4000) + 1))))
+    if edge_cases:
+        shapes += [(1024, hirschberg.LEAF_CELLS // 1024), (2, 4000)]
+    return q, s, np.array([(int(rng.integers(0, 5001 - m)), m, int(rng.integers(0, 5001 - n)),
+                            n, g * int(rng.integers(2)), g * int(rng.integers(2)))
+                           for m, n in shapes], np.int64)
+
+
+@pytest.mark.parametrize("wide", [None, False, True], ids=["choice", "int32", "int64"])
+def test_leaf_kernel_matches_leafalign(dev, wide):
+    """The leaf kernel against the plain version (the host leaf solve,
+    csrc/leafalign.cpp, leaf by leaf): drawn batches with a leaf of exactly
+    LEAF_CELLS and one of m = 2, and a batch of one leaf; one launch each."""
+    rng = np.random.default_rng(91)
+    for mat, hi, (go, ge) in ((PADDED, 20, (11, 1)),
+                              (matrices.constant_scoring(10, -8).padded(), 4, (20, 1))):
+        Q, R = oracle.gap_qr(go, ge)
+        cost = torch.as_tensor(-mat.astype(np.int32))
+        for n_leaves, edges in ((30, True), (1, False)):
+            q, s, leaves = _leaf_batch(rng, n_leaves, Q - R, hi, edges)
+            want = leaf_cuda.leaf_batch_cuda(torch.as_tensor(q), torch.as_tensor(s), leaves,
+                                             cost, Q - R, R)
+            before = leaf_cuda.launches
+            got = leaf_cuda.leaf_batch_cuda(torch.as_tensor(q).to(dev),
+                                            torch.as_tensor(s).to(dev), leaves, cost.to(dev),
+                                            Q - R, R, wide=wide)
+            torch.cuda.synchronize()
+            assert leaf_cuda.launches == before + 1
+            assert leaf_cuda.unpack(got.cpu().numpy(), leaves) == \
+                leaf_cuda.unpack(want.numpy(), leaves)
+
+
+def test_leaf_wrapper_rejects_what_it_cannot_take(dev):
+    q = torch.zeros(40, dtype=torch.uint8, device=dev)
+    cost = torch.zeros(32, 32, dtype=torch.int32, device=dev)
+    leaves = [(0, 10, 0, 10, 10, 10)]
+    with pytest.raises(TypeError, match="q_codes"):
+        leaf_cuda.leaf_batch_cuda(q.int(), q, leaves, cost, 10, 1)
+    with pytest.raises(TypeError, match="cost"):
+        leaf_cuda.leaf_batch_cuda(q, q, leaves, cost.long(), 10, 1)
+    with pytest.raises(ValueError, match="device"):
+        leaf_cuda.leaf_batch_cuda(q, q, leaves, cost.cpu(), 10, 1)
+    with pytest.raises(ValueError, match="outside"):
+        leaf_cuda.leaf_batch_cuda(q, q, [(35, 10, 0, 10, 10, 10)], cost, 10, 1)
+    with pytest.raises(ValueError, match="Q >= R"):
+        leaf_cuda.leaf_batch_cuda(q, q, [(0, 10, 0, 10, 0, 0)], cost, -1, 1)
+
+
+def test_mito_shape_leaves_on_card_equal_host(dev, monkeypatch):
+    """mito_align's pair shape (16,569 x 16,554 ACGT homologs, +10/-8, gaps
+    20/1), NW on the card: the ops string with each pass's leaves in one
+    launch is byte for byte the one with the leaves solved on the host."""
+    rng = np.random.default_rng(16569)
+    q = rng.integers(0, 4, 16569).astype(np.uint8)
+    keep = rng.random(16569) >= 0.002  # deletions
+    s = np.where(rng.random(16569) < 0.09, rng.integers(0, 4, 16569), q)[keep]
+    s = np.concatenate([s, rng.integers(0, 4, 16554)])[:16554].astype(np.uint8)
+    sub = matrices.constant_scoring(10, -8).padded()
+    kw = dict(local=False, first_residue_opens=False, device=dev)
+    before = leaf_cuda.launches
+    st = SearchStats()
+    got = hirschberg.align_pair_linear(q, s, sub, 20, 1, stats=st, **kw)
+    assert leaf_cuda.launches > before and st.aligner_levels >= 5
+    plain = leaf_cuda.leaf_batch_cuda
+
+    def on_host(q_codes, s_codes, leaves, cost, g, h, **_):
+        return plain(q_codes.cpu(), s_codes.cpu(), leaves, cost.cpu(), g, h).to(dev)
+
+    monkeypatch.setattr(leaf_cuda, "leaf_batch_cuda", on_host)
+    before = leaf_cuda.launches
+    want = hirschberg.align_pair_linear(q, s, sub, 20, 1, **kw)
+    assert leaf_cuda.launches == before
+    assert (got.score, got.cigar) == (want.score, want.cigar)
 
 
 # -- the probes (libssa_tpu_torch/experiments/) ------------------------------------

@@ -106,7 +106,8 @@ def test_align_many_sweeps_once_a_profile_height(ctx):
 @pytest.mark.parametrize("on_device", [False, True])
 def test_linear_aligner_records_its_levels(monkeypatch, on_device):
     """Myers-Miller's divide levels, on host passes or (K2's plain version on
-    the CPU) on the device path, each one span with its counts."""
+    the CPU) on the device path, each one span with its counts; each pass's
+    leaves one mm.leaves span, whose fetch waits on the device path."""
     monkeypatch.setattr(hirschberg, "LEAF_CELLS", 4096)
     if on_device:
         monkeypatch.setattr(hirschberg, "DEVICE_ON_CPU", True)
@@ -124,7 +125,11 @@ def test_linear_aligner_records_its_levels(monkeypatch, on_device):
     assert all(x.counts["device"] == on_device for x in levels)
     waits = [x for x in spans if x.name == "device.wait"]
     assert bool(waits) == on_device
-    assert all(spans[w.parent].name == "mm.level" for w in waits)
+    assert all(spans[w.parent].name in ("mm.level", "mm.leaves") for w in waits)
+    leaves = [x for x in spans if x.name == "mm.leaves"]
+    assert leaves and all(x.parent == 0 for x in leaves)
+    assert sum(spans[w.parent].name == "mm.leaves" for w in waits) == (
+        len(leaves) if on_device else 0)
     assert stats.aligner_levels == (len(levels) if on_device else 0)
     assert tb.score == hirschberg.align_pair_linear(
         q, s, builtin("BLOSUM62").scores, 10, 1, local=False, device="cpu").score
