@@ -32,11 +32,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..constants import SCORE_LIMIT_8, SCORE_LIMIT_16, BitWidth, OutputMode
+from ..constants import BitWidth, OutputMode
 from ..io.db import SequenceDB
 from ..ops.scoring import make_padded_profile
 from ..ops.topk import INVALID_ID, host_topk
-from ..search import manager
+from ..search import kernels, manager
 from ..search.manager import SearchEngine, SearchParams, SearchStats, resolve_device
 from ..util.logging import log
 
@@ -120,17 +120,6 @@ def make_db_mesh(n_devices: int | None = None, devices=None, group=None) -> DBMe
 def _pad(a, k: int, fill) -> np.ndarray:
     out = np.full(k, fill, dtype=np.int64)
     out[: len(a)] = a[:k]
-    return out
-
-
-def _pairs(stacks, n: int) -> list:
-    """Each width group with every (query, chunk) pair of ``n`` queries:
-    ``(codes, lengths, ids, iq, ic)``, query-major."""
-    out = []
-    for codes, lens, ids, _ in stacks:
-        nc = int(codes.shape[0])
-        out.append((codes, lens, ids, np.repeat(np.arange(n, dtype=np.int32), nc),
-                    np.tile(np.arange(nc, dtype=np.int32), n)))
     return out
 
 
@@ -352,9 +341,8 @@ class ShardedSearchEngine:
         if bit_width == BitWidth.BIT64:
             dtype_str, eff_limit, requeue_bw = "int64", None, BitWidth.BIT64
         else:
-            limit = {BitWidth.BIT8: SCORE_LIMIT_8, BitWidth.BIT16: SCORE_LIMIT_16}.get(bit_width)
             dtype_str = self.params.dtype
-            eff_limit = manager._eff_limit(limit, dtype_str)
+            eff_limit = manager._eff_limit(manager.narrow_limit(bit_width), dtype_str)
             requeue_bw = BitWidth.EXACT  # the exact ladder keeps a re-run exact
         all_s: list[np.ndarray] = []
         all_i: list[np.ndarray] = []
@@ -379,22 +367,16 @@ class ShardedSearchEngine:
                 continue
             dev = self.mesh.local[d]
             flat = np.concatenate([s[3].reshape(-1) for s in stacks])
-            *_, sweep = self._engines[dev]._sweeps(local, dtype_str, eff_limit)
+            sweeps = self._engines[dev]._sweeps(local, dtype_str, eff_limit)
             try:
-                out, _, _ = sweep(profiles[dev][0], [s[:3] for s in stacks], m, k)
-                fetched = out.cpu().numpy()
+                lad = sweeps.ladder(profiles[dev][0], [s[:3] for s in stacks], m, k, stats)
             except Exception as exc:  # a failed shard re-queues, as a step does
                 self._warn(f"shard {d}'s sweep", exc)
                 requeue(flat, sum(len(s[3]) for s in stacks))
                 continue
-            stats.dispatches += 1
-            stats.fetches += 1
-            kk = min(k, len(flat))
-            all_s.append(fetched[:kk])
-            all_i.append(fetched[kk : 2 * kk])
-            packed = fetched[2 * kk :].astype(np.uint32)
-            flags = ((packed[:, None] >> np.arange(32, dtype=np.uint32)) & 1).astype(bool)
-            flagged.append(flat[flags.reshape(-1)[: len(flat)] & (flat >= 0)])
+            all_s.append(lad.scores)
+            all_i.append(lad.ids)
+            flagged.append(flat[lad.lane_flags & (flat >= 0)])
 
         over = np.unique(np.concatenate(flagged)) if flagged else np.empty(0, np.int32)
         scores = np.concatenate(all_s) if all_s else np.empty(0, np.int64)
@@ -441,16 +423,16 @@ class ShardedSearchEngine:
         stats = stats if stats is not None else SearchStats()
         if not queries or any(len(q) == 0 for q in queries):
             raise ValueError("need at least one non-empty query")
-        nlimit = {BitWidth.BIT8: SCORE_LIMIT_8, BitWidth.BIT16: SCORE_LIMIT_16}.get(bit_width)
+        nlimit = manager.narrow_limit(bit_width)
         t0 = time.perf_counter()
-        eff_limit = manager.F32_WINDOW if p.dtype == "float32" else None
+        eff_limit = manager._eff_limit(None, p.dtype)
         nq = len(queries)
         cand = [([], []) for _ in range(nq)]
         overflowed = np.zeros(nq, dtype=bool)
         n_flagged = 0
         hgroups: dict[int, list[int]] = {}
         for qi, q in enumerate(queries):
-            hgroups.setdefault(len(q) + ((-len(q)) % 32), []).append(qi)
+            hgroups.setdefault(manager.profile_rows(len(q)), []).append(qi)
         groups = self._device_groups()
 
         def requeue(ids, qis, n_steps):
@@ -480,31 +462,23 @@ class ShardedSearchEngine:
                 if not stacks:
                     continue
                 dev = self.mesh.local[d]
-                _, _, sweep, *_ = self._engines[dev]._sweeps(local, p.dtype, eff_limit, nlimit)
+                sweeps = self._engines[dev]._sweeps(local, p.dtype, eff_limit, nlimit)
                 try:
-                    top_s, top_i, any_f, n_fl = sweep(
-                        profiles[dev], _pairs(stacks, n), m_reals, k, n
+                    top = sweeps.topk_many(
+                        profiles[dev], kernels.pairs([s[:3] for s in stacks], n), m_reals, k,
+                        stats,
                     )
-                    fetched = torch.cat([
-                        top_s.reshape(-1).long(), top_i.reshape(-1).long(),
-                        any_f.long().reshape(1), n_fl.long().reshape(1),
-                    ]).cpu().numpy()
                 except Exception as exc:
                     self._warn(f"shard {d}'s sweep", exc)
                     requeue(np.concatenate([s[3] for s in stacks]), qis,
                             sum(len(s[3]) for s in stacks))
                     continue
-                stats.dispatches += 1
-                stats.fetches += 1
-                kk = (len(fetched) - 2) // (2 * n)
-                s_mat = fetched[: n * kk].reshape(n, kk)
-                i_mat = fetched[n * kk : 2 * n * kk].reshape(n, kk)
                 for row, qi in enumerate(qis):
-                    cand[qi][0].append(s_mat[row])
-                    cand[qi][1].append(i_mat[row])
-                if fetched[-2]:
+                    cand[qi][0].append(top.scores[row])
+                    cand[qi][1].append(top.ids[row])
+                if top.overflow:
                     overflowed[qis] = True
-                n_flagged += int(fetched[-1])
+                n_flagged += top.n_flagged
 
         top_s = np.full((nq, k), PAD_SCORE, dtype=np.int64)
         top_i = np.full((nq, k), INVALID_ID, dtype=np.int64)
@@ -565,16 +539,16 @@ class ShardedSearchEngine:
         stats = stats if stats is not None else SearchStats()
         if not frames or any(len(f) == 0 for f in frames):
             raise ValueError("need at least one non-empty query frame")
-        nlimit = {BitWidth.BIT8: SCORE_LIMIT_8, BitWidth.BIT16: SCORE_LIMIT_16}.get(bit_width)
+        nlimit = manager.narrow_limit(bit_width)
         t0 = time.perf_counter()
-        eff_limit = manager.F32_WINDOW if p.dtype == "float32" else None
-        mq = max(len(f) + ((-len(f)) % 32) for f in frames)
+        eff_limit = manager._eff_limit(None, p.dtype)
+        mq = max(manager.profile_rows(len(f)) for f in frames)
         profiles = self._profiles(frames, rows=mq)
         m_reals = [len(f) for f in frames]
-        if group_of is None:
-            group_of = np.arange(len(self.db), dtype=np.int32)
-        group_of = np.asarray(group_of, dtype=np.int32)
-        group_dev = {dev: torch.as_tensor(group_of).to(dev) for dev in self._engines}
+        if group_of is not None:
+            group_of = np.asarray(group_of, dtype=np.int32)
+        group_dev = {dev: None if group_of is None else torch.as_tensor(group_of).to(dev)
+                     for dev in self._engines}
         nf = len(frames)
         groups = self._device_groups()
         cand: list[tuple] = []
@@ -596,26 +570,20 @@ class ShardedSearchEngine:
             if not stacks:
                 continue
             dev = self.mesh.local[d]
-            *_, sweep, _ = self._engines[dev]._sweeps(local, p.dtype, eff_limit, nlimit)
+            sweeps = self._engines[dev]._sweeps(local, p.dtype, eff_limit, nlimit)
             try:
-                top_s, top_r, top_e, top_f, any_f, n_fl = sweep(
-                    profiles[dev], _pairs(stacks, nf), m_reals, group_dev[dev], k, nf
+                red = sweeps.reduced(
+                    profiles[dev], kernels.pairs([s[:3] for s in stacks], nf), m_reals,
+                    group_dev[dev], k, stats,
                 )
-                fetched = torch.cat([
-                    top_s.long(), top_r.long(), top_e.long(), top_f.long(),
-                    any_f.long().reshape(1), n_fl.long().reshape(1),
-                ]).cpu().numpy()
             except Exception as exc:
                 self._warn(f"shard {d}'s sweep", exc)
                 overflow |= requeue(np.concatenate([s[3] for s in stacks]),
                                     sum(len(s[3]) for s in stacks))
                 continue
-            stats.dispatches += 1
-            stats.fetches += 1
-            kk = (len(fetched) - 2) // 4
-            cand.append(tuple(fetched[i * kk : (i + 1) * kk] for i in range(4)))
-            overflow |= bool(fetched[-2])
-            n_flagged += int(fetched[-1])
+            cand.append((red.scores, red.records, red.entries, red.frames))
+            overflow |= red.overflow
+            n_flagged += red.n_flagged
 
         parts = [np.concatenate([c[i] for c in cand]) if cand else np.empty(0, np.int64)
                  for i in range(4)]
@@ -651,7 +619,8 @@ class ShardedSearchEngine:
         """Re-run one failed reduced-sweep group on the single-device engine.
 
         Returns its top-k candidates ``(s, rec, entry, frame)`` with global
-        entry ids, or ``None`` on an f32-window escape.
+        entry ids, or ``None`` on an f32-window escape. ``group_of`` None:
+        each entry is its own record.
         """
         flat = ids_np.reshape(-1)
         valid = np.unique(flat[flat >= 0]).astype(np.int32)
@@ -659,7 +628,8 @@ class ShardedSearchEngine:
             return (np.empty(0, np.int64),) * 4
         rq = SearchStats()
         got = self._engine_over(valid).search_reduced(
-            frames, group_of[valid], k, local, rq, bit_width or BitWidth.EXACT
+            frames, valid if group_of is None else group_of[valid], k, local, rq,
+            bit_width or BitWidth.EXACT,
         )
         if stats is not None:
             stats.merge(rq)

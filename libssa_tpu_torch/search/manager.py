@@ -37,6 +37,7 @@ from ..ops.longpair import score_bound
 from ..ops.scoring import make_padded_profile
 from ..ops.topk import host_topk
 from ..util.profiling import adopt, span
+from . import kernels
 
 F32_WINDOW = 2**24 - 1  # the reference's exact f32 integer window
 
@@ -152,6 +153,23 @@ def _eff_limit(limit, dtype_str: str):
     return limit
 
 
+def narrow_limit(bit_width: BitWidth) -> int | None:
+    """The narrow window of a bit width: 255 for BIT8, 32767 for BIT16,
+    else None."""
+    return {BitWidth.BIT8: SCORE_LIMIT_8, BitWidth.BIT16: SCORE_LIMIT_16}.get(bit_width)
+
+
+def profile_rows(n: int) -> int:
+    """The profile height of a query of ``n`` residues: a multiple of 32."""
+    return n + (-n) % 32
+
+
+def _lane_ids(grouped) -> np.ndarray:
+    """The DB ids of a one-query sweep's lanes, in its lane order (-1:
+    padding)."""
+    return np.concatenate([np.stack(sids).reshape(-1) for _, _, sids in grouped])
+
+
 class SearchEngine:
     """One query-vs-database scoring engine over a packed DB."""
 
@@ -183,10 +201,8 @@ class SearchEngine:
         self._device_stacks: dict = {}
         self._scratch: torch.Tensor | None = None
 
-    def _sweeps(self, local: bool, dtype_str: str, eff_limit, nlimit=None):
+    def _sweeps(self, local: bool, dtype_str: str, eff_limit, nlimit=None) -> kernels.Sweeps:
         """The five stage sweeps for this engine's kernel, gaps and device."""
-        from . import kernels
-
         if self.device.type == "cuda" and self._scratch is None:
             # K1's strip-edge scratch: one budget per engine, reused by every
             # launch (the wrapper splits a group's pairs to fit it).
@@ -195,8 +211,7 @@ class SearchEngine:
             )
         return kernels.stage_sweep(
             self.params.kernel, int(self.gap_q), int(self.gap_r), local,
-            self.params.use_matmul, dtype_str, eff_limit, nlimit,
-            max_abs=self._max_abs, scratch=self._scratch,
+            dtype_str, eff_limit, nlimit, max_abs=self._max_abs, scratch=self._scratch,
         )
 
     def _profiles(self, seqs, rows=None) -> torch.Tensor:
@@ -251,35 +266,14 @@ class SearchEngine:
         # Rescore passes touch few subjects: shrink the batch (power of two).
         bs = min(p.batch_size, max(8, 1 << (max(len(db), 1) - 1).bit_length()))
         grouped, dev_stacks = self._stacks_on_device(db, bs)
-        sweep, *_ = self._sweeps(local, dtype_str, eff_limit)
-        stacks = tuple((codes, lens) for codes, lens, _ in dev_stacks)
-        s_flat, f_flat = sweep(profile, stacks, m_real)
-        if stats is not None:
-            stats.dispatches += 1
-        with span(stats, "device.wait"):
-            s_all = s_flat.cpu().numpy()
-            f_all = f_flat.cpu().numpy() if eff_limit is not None else None
-        if stats is not None:
-            stats.fetches += 1 + (1 if eff_limit is not None else 0)
-
+        got = self._sweeps(local, dtype_str, eff_limit).scores(profile, dev_stacks, m_real, stats)
+        ids = _lane_ids(grouped)
+        lanes = ids >= 0
         scores = np.zeros(len(db), dtype=np.int64)
-        over: list[np.ndarray] = []
-        off = 0
-        for _, _, seq_id_list in grouped:
-            for seq_ids in seq_id_list:
-                nb = len(seq_ids)
-                lanes = seq_ids >= 0
-                local_ids = seq_ids[lanes]
-                scores[local_ids] = s_all[off : off + nb][lanes]
-                if f_all is not None:
-                    over.append(local_ids[f_all[off : off + nb][lanes]])
-                off += nb
-        over_ids = (
-            np.concatenate(over).astype(np.int32)
-            if over
-            else np.zeros(0, dtype=np.int32)
-        )
-        return scores, np.sort(over_ids)
+        scores[ids[lanes]] = got.scores[lanes]
+        if got.flags is None:
+            return scores, np.zeros(0, dtype=np.int32)
+        return scores, np.sort(ids[lanes & got.flags]).astype(np.int32)
 
     def score_all(
         self,
@@ -349,9 +343,8 @@ class SearchEngine:
     def _ladder_search_device(self, q_codes, k, local, bit_width, stats):
         """BIT8/BIT16 search (SW or NW): one sweep + one small fetch.
 
-        ``sweep_ladder_topk`` computes the rung's scores, the overflow flags
-        (32 lanes per word) and the device top-k. The flags are rung
-        statistics; the recompute runs only when the f32 window itself is
+        ``Sweeps.ladder`` computes the rung's scores, the overflow flags and
+        the device top-k. The flags are rung statistics; the recompute runs only when the f32 window itself is
         at risk (the sweep's scores are exact inside it).
         """
         p = self.params
@@ -363,28 +356,14 @@ class SearchEngine:
         profile = self._profiles([q_codes])[0]
 
         grouped, dev_stacks = self._stacks_on_device(self.db, p.batch_size)
-        limit = SCORE_LIMIT_8 if bit_width == BitWidth.BIT8 else SCORE_LIMIT_16
-        eff_limit = _eff_limit(limit, p.dtype)
-        *_, sweep_ladder = self._sweeps(local, p.dtype, eff_limit)
-        out_dev, s_m, _ = sweep_ladder(profile, dev_stacks, m, k)
-        stats.dispatches += 1
-        fetched = out_dev.cpu().numpy()  # the ONLY fetch when nothing overflows
-        stats.fetches += 1
+        eff_limit = _eff_limit(narrow_limit(bit_width), p.dtype)
+        lad = self._sweeps(local, p.dtype, eff_limit).ladder(profile, dev_stacks, m, k, stats)
         stats.cells += m * self.db.total_residues
 
-        flat_ids = np.concatenate(
-            [np.stack(sids).reshape(-1) for _, _, sids in grouped]
-        )
-        n_lanes = len(flat_ids)
-        kk = min(k, n_lanes)
-        top_s = fetched[:kk].astype(np.int64)
-        top_i = fetched[kk : 2 * kk].astype(np.int32)
-        packed = fetched[2 * kk :].astype(np.uint32)
-        flags = (
-            (packed[:, None] >> np.arange(32, dtype=np.uint32)[None, :]) & 1
-        ).astype(bool).reshape(-1)[:n_lanes]
-
-        over_ids = np.unique(flat_ids[flags & (flat_ids >= 0)]).astype(np.int32)
+        flat_ids = _lane_ids(grouped)
+        kk = len(lad.scores)
+        top_s, top_i = lad.scores, lad.ids.astype(np.int32)
+        over_ids = np.unique(flat_ids[lad.lane_flags & (flat_ids >= 0)]).astype(np.int32)
         if len(over_ids):
             stats.rescored[f"limit>{eff_limit}"] = len(over_ids)
         if len(over_ids) and self._window_risk(m):
@@ -400,14 +379,14 @@ class SearchEngine:
                 device=self.device,
             ).score_all(q_codes, local, sub_bw, rescue_stats)
             stats.merge(rescue_stats, work=True)
-            s_host = s_m.cpu().numpy().astype(np.int64)
+            s_host = lad.lane_scores.cpu().numpy().astype(np.int64)
             stats.fetches += 1
             pos = np.full(len(self.db), -1, dtype=np.int64)
             valid = flat_ids >= 0
             pos[flat_ids[valid]] = np.nonzero(valid)[0]
             s_host[pos[over_ids]] = r
             top_s, top_i = host_topk(s_host, flat_ids, kk)
-        n_valid = int((top_i != 2**31 - 1).sum())
+        n_valid = int((top_i != kernels.INVALID).sum())
         stats.subjects += len(self.db)
         stats.seconds += time.perf_counter() - t0
         return top_s[:n_valid], top_i[:n_valid]
@@ -432,54 +411,35 @@ class SearchEngine:
             raise ValueError("need at least one non-empty query")
         t0 = time.perf_counter()
 
-        track = p.dtype == "float32"
         qgroups: dict[int, list[int]] = {}
         for qi, q in enumerate(queries):
-            qgroups.setdefault(len(q) + ((-len(q)) % 32), []).append(qi)
+            qgroups.setdefault(profile_rows(len(q)), []).append(qi)
         grouped, dev_stacks = self._stacks_on_device(self.db, p.batch_size)
 
-        eff_limit = F32_WINDOW if track else None
-        _, sweep_multi, *_ = self._sweeps(local, p.dtype, eff_limit)
-        results = []  # (row_map: [(qi, seq_ids)], s_all, f_all)
+        sweeps = self._sweeps(local, p.dtype, _eff_limit(None, p.dtype))
+        results = []  # (row_map: [(qi, seq_ids)], Lanes)
         for qids in qgroups.values():
             prof_stack = self._profiles([queries[qi] for qi in qids])
             m_reals = [len(queries[qi]) for qi in qids]
-            stacks = []
-            row_map = []
-            nq = len(qids)
-            for (codes, lens, _), (_, _, seq_id_list) in zip(
-                dev_stacks, grouped
-            ):
-                nc = len(seq_id_list)
-                iq = np.repeat(np.arange(nq, dtype=np.int32), nc)
-                ic = np.tile(np.arange(nc, dtype=np.int32), nq)
-                stacks.append((codes, lens, iq, ic))
-                row_map.extend(
-                    (qids[qr], seq_id_list[cr]) for qr, cr in zip(iq, ic)
-                )
-            s_flat, f_flat = sweep_multi(prof_stack, tuple(stacks), m_reals)
-            stats.dispatches += 1
-            with span(stats, "device.wait"):
-                results.append(
-                    (
-                        row_map,
-                        s_flat.cpu().numpy(),
-                        f_flat.cpu().numpy() if track else None,
-                    )
-                )
-            stats.fetches += 1 + (1 if track else 0)
+            stacks = kernels.pairs(dev_stacks, len(qids))
+            row_map = [
+                (qids[qr], seq_id_list[cr])
+                for (*_, iq, ic), (_, _, seq_id_list) in zip(stacks, grouped)
+                for qr, cr in zip(iq, ic)
+            ]
+            results.append((row_map, sweeps.scores_many(prof_stack, stacks, m_reals, stats)))
 
         scores = np.zeros((len(queries), len(self.db)), dtype=np.int64)
         needs_exact: list[tuple[int, int]] = []
-        for row_map, s_all, f_all in results:
+        for row_map, got in results:
             off = 0
             for qi, seq_ids in row_map:
                 nb = len(seq_ids)
                 lanes = seq_ids >= 0
                 ids = seq_ids[lanes]
-                scores[qi, ids] = s_all[off : off + nb][lanes]
-                if f_all is not None:
-                    flags = f_all[off : off + nb][lanes]
+                scores[qi, ids] = got.scores[off : off + nb][lanes]
+                if got.flags is not None:
+                    flags = got.flags[off : off + nb][lanes]
                     needs_exact.extend((qi, int(i)) for i in ids[flags])
                 off += nb
         # f32-window escapees: an exact int32 pass while the a-priori bound
@@ -536,10 +496,7 @@ class SearchEngine:
         stats = stats if stats is not None else SearchStats()
         if not queries or any(len(q) == 0 for q in queries):
             raise ValueError("need at least one non-empty query")
-        nlimit = {
-            BitWidth.BIT8: SCORE_LIMIT_8,
-            BitWidth.BIT16: SCORE_LIMIT_16,
-        }.get(bit_width)
+        nlimit = narrow_limit(bit_width)
         if bit_width == BitWidth.BIT64:
             note = (
                 "BIT64 on the batched path: exact sweep with "
@@ -552,7 +509,7 @@ class SearchEngine:
             # One device top-k sweep a profile height.
             hgroups: dict[int, list[int]] = {}
             for qi, q in enumerate(queries):
-                hgroups.setdefault(len(q) + ((-len(q)) % 32), []).append(qi)
+                hgroups.setdefault(profile_rows(len(q)), []).append(qi)
             out: list = [None] * len(queries)
             for rows, qis in hgroups.items():
                 with span(stats, "search.group", queries=len(qis), rows=rows):
@@ -569,37 +526,16 @@ class SearchEngine:
         p = self.params
         t0 = time.perf_counter()
         prof_stack = self._profiles(queries)
-        grouped, dev_stacks = self._stacks_on_device(self.db, p.batch_size)
-        _, _, sweep_topk, *_ = self._sweeps(
-            local, p.dtype, F32_WINDOW if p.dtype == "float32" else None, nlimit
-        )
+        _, dev_stacks = self._stacks_on_device(self.db, p.batch_size)
+        sweeps = self._sweeps(local, p.dtype, _eff_limit(None, p.dtype), nlimit)
         nq = len(queries)
-        m_reals = [len(q) for q in queries]
-        stacks = []
-        for codes, lens, ids_d in dev_stacks:
-            nc = int(codes.shape[0])
-            iq = np.repeat(np.arange(nq, dtype=np.int32), nc)
-            ic = np.tile(np.arange(nc, dtype=np.int32), nq)
-            stacks.append((codes, lens, ids_d, iq, ic))
-        top_s, top_i, any_f, n_fl = sweep_topk(
-            prof_stack, tuple(stacks), m_reals, k, nq, stats
+        top = sweeps.topk_many(
+            prof_stack, kernels.pairs(dev_stacks, nq), [len(q) for q in queries], k, stats
         )
-        stats.dispatches += 1
-        fetched = torch.cat(
-            [
-                top_s.reshape(-1).long(),
-                top_i.reshape(-1).long(),
-                any_f.long().reshape(1),
-                n_fl.long().reshape(1),
-            ]
-        )
-        with span(stats, "device.wait"):
-            fetched = fetched.cpu().numpy()
-        stats.fetches += 1
-        if nlimit is not None and fetched[-1]:
+        if nlimit is not None and top.n_flagged:
             key = f"limit>{nlimit}/pairs"
-            stats.rescored[key] = stats.rescored.get(key, 0) + int(fetched[-1])
-        if fetched[-2]:
+            stats.rescored[key] = stats.rescored.get(key, 0) + top.n_flagged
+        if top.overflow:
             # f32-window overflow somewhere: exact full-matrix fallback.
             # Attribute the aborted sweep's cells/time first.
             for q in queries:
@@ -609,19 +545,15 @@ class SearchEngine:
             scores = self.score_all_many(queries, local, stats)
             ids = np.arange(scores.shape[1])
             return [host_topk(scores[qi], ids, k) for qi in range(nq)]
-        kk = min(k, (len(fetched) - 2) // (2 * nq))
-        s_mat = fetched[: nq * kk].reshape(nq, kk)
-        i_mat = fetched[nq * kk : 2 * nq * kk].reshape(nq, kk)
         # Padding lanes sort last as (NEG, INVALID): trim them (every query
         # sees the same subject set, so the valid count is shared).
-        n_valid = int((i_mat[0] != 2**31 - 1).sum()) if nq else 0
-        kk = min(kk, n_valid)
+        kk = int((top.ids[0] != kernels.INVALID).sum()) if nq else 0
         for q in queries:
             stats.cells += len(q) * self.db.total_residues
         stats.subjects += nq * len(self.db)
         stats.seconds += time.perf_counter() - t0
         return [
-            (s_mat[qi, :kk], i_mat[qi, :kk].astype(np.int32))
+            (top.scores[qi, :kk], top.ids[qi, :kk].astype(np.int32))
             for qi in range(nq)
         ]
 
@@ -648,10 +580,7 @@ class SearchEngine:
         stats = stats if stats is not None else SearchStats()
         if not frames or any(len(f) == 0 for f in frames):
             raise ValueError("need at least one non-empty query frame")
-        nlimit = {
-            BitWidth.BIT8: SCORE_LIMIT_8,
-            BitWidth.BIT16: SCORE_LIMIT_16,
-        }.get(bit_width)
+        nlimit = narrow_limit(bit_width)
         if bit_width == BitWidth.BIT64:
             stats.notes.append(
                 "BIT64 on the frame-fanout path: exact sweep with "
@@ -660,7 +589,7 @@ class SearchEngine:
             )
         t0 = time.perf_counter()
         nf = len(frames)
-        mq = max(len(f) + ((-len(f)) % 32) for f in frames)
+        mq = max(profile_rows(len(f)) for f in frames)
         with span(stats, "search.reduced", frames=nf, rows=mq):
             prof_stack = self._profiles(frames, rows=mq)
             m_reals = [len(f) for f in frames]
@@ -668,40 +597,22 @@ class SearchEngine:
                 np.asarray(group_of, dtype=np.int32)
             ).to(self.device)
 
-            grouped, dev_stacks = self._stacks_on_device(self.db, p.batch_size)
-            _, _, _, sweep_reduced, _ = self._sweeps(
-                local, p.dtype, F32_WINDOW if p.dtype == "float32" else None, nlimit
+            _, dev_stacks = self._stacks_on_device(self.db, p.batch_size)
+            sweeps = self._sweeps(local, p.dtype, _eff_limit(None, p.dtype), nlimit)
+            red = sweeps.reduced(
+                prof_stack, kernels.pairs(dev_stacks, nf), m_reals, group_dev, k, stats
             )
-            stacks = []
-            for codes, lens, ids_d in dev_stacks:
-                nc = int(codes.shape[0])
-                iq = np.repeat(np.arange(nf, dtype=np.int32), nc)
-                ic = np.tile(np.arange(nc, dtype=np.int32), nf)
-                stacks.append((codes, lens, ids_d, iq, ic))
-            top_s, top_r, top_e, top_f, any_f, n_fl = sweep_reduced(
-                prof_stack, tuple(stacks), m_reals, group_dev, k, nf, stats
-            )
-            stats.dispatches += 1
-            fetched = torch.cat(
-                [top_s.long(), top_r.long(), top_e.long(), top_f.long(),
-                 any_f.long().reshape(1), n_fl.long().reshape(1)]
-            )
-            with span(stats, "device.wait"):
-                fetched = fetched.cpu().numpy()
-            stats.fetches += 1
             for f in frames:
                 stats.cells += len(f) * self.db.total_residues
             stats.subjects += len(self.db)
             stats.seconds += time.perf_counter() - t0
-            if nlimit is not None and fetched[-1]:
+            if nlimit is not None and red.n_flagged:
                 key = f"limit>{nlimit}/entries"
-                stats.rescored[key] = stats.rescored.get(key, 0) + int(fetched[-1])
-            if fetched[-2]:
+                stats.rescored[key] = stats.rescored.get(key, 0) + red.n_flagged
+            if red.overflow:
                 return None  # f32-window escapee: caller takes the exact path
-            kk = (len(fetched) - 2) // 4
-            s, r, e, f = (fetched[i * kk : (i + 1) * kk] for i in range(4))
-            valid = r != 2**31 - 1
+            valid = red.records != kernels.INVALID
             return (
-                s[valid], r[valid].astype(np.int32), e[valid].astype(np.int32),
-                f[valid].astype(np.int32),
+                red.scores[valid], red.records[valid].astype(np.int32),
+                red.entries[valid].astype(np.int32), red.frames[valid].astype(np.int32),
             )

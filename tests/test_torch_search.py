@@ -62,8 +62,9 @@ def _jax_stacks(grouped, with_ids=False):
 
 
 def _sweeps(local, eff_limit=255, nlimit=None, dtype="float32"):
+    """The reference's five sweeps (a tuple) and the port's (named)."""
     j = jax_kernels.stage_sweep("scan", 11, 1, local, False, dtype, eff_limit, nlimit)
-    t = kernels.stage_sweep("auto", 11, 1, local, False, dtype, eff_limit, nlimit)
+    t = kernels.stage_sweep("auto", 11, 1, local, dtype, eff_limit, nlimit)
     return j, t
 
 
@@ -77,43 +78,43 @@ def test_sweep_and_sweep_multi_match(small_db, local):
     grouped = db.grouped_stacks(8, 16)
     jst = _jax_stacks(grouped)
     tst = tuple((c, l) for c, l, _ in stacks_to_device(grouped, "cpu"))
-    (jsweep, jmulti, *_), (tsweep, tmulti, *_) = _sweeps(local, eff_limit=60)
+    (jsweep, jmulti, *_), port = _sweeps(local, eff_limit=60)
     q = seqs[2]
     prof = make_padded_profile(q, PADDED)
     js, jf = jsweep(jnp.asarray(prof), jst, jnp.int32(len(q)))
-    ts, tf = tsweep(torch.as_tensor(prof), tst, len(q))
-    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
-    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
-    assert tf.any() and not tf.all()
+    got = port.scores(torch.as_tensor(prof), tst, len(q))
+    np.testing.assert_array_equal(got.scores, np.asarray(js))
+    np.testing.assert_array_equal(got.flags, np.asarray(jf))
+    assert got.flags.any() and not got.flags.all()
 
     qs = _queries(seqs, np.random.default_rng(1), 2)
     profs = np.stack([make_padded_profile(x, PADDED, rows=64) for x in qs])
     mrs = [len(x) for x in qs]
-    jpairs, tpairs = [], []
-    for (jc, jl), (tc, tl) in zip(jst, tst):
+    jpairs = []
+    for jc, jl in jst:
         nc = jc.shape[0]
         iq = np.repeat(np.arange(2, dtype=np.int32), nc)
         ic = np.tile(np.arange(nc, dtype=np.int32), 2)
         jpairs.append((jc, jl, jnp.asarray(iq), jnp.asarray(ic)))
-        tpairs.append((tc, tl, iq, ic))
     js, jf = jmulti(jnp.asarray(profs), tuple(jpairs), jnp.asarray(mrs, jnp.int32))
-    ts, tf = tmulti(torch.as_tensor(profs), tuple(tpairs), mrs)
-    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
-    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+    got = port.scores_many(torch.as_tensor(profs), kernels.pairs(tst, 2), mrs)
+    np.testing.assert_array_equal(got.scores, np.asarray(js))
+    np.testing.assert_array_equal(got.flags, np.asarray(jf))
 
 
 def _pair_stacks(grouped, nq, jax_side):
+    """Every (query, chunk) pair: the reference's staged here, the port's by
+    ``kernels.pairs``."""
+    if not jax_side:
+        return kernels.pairs(stacks_to_device(grouped, "cpu"), nq)
     out = []
     for c, l, sids in grouped:
         nc = c.shape[0]
         iq = np.repeat(np.arange(nq, dtype=np.int32), nc)
         ic = np.tile(np.arange(nc, dtype=np.int32), nq)
         ids = np.stack(sids).astype(np.int32)
-        if jax_side:
-            out.append((jnp.asarray(c, jnp.int8), jnp.asarray(l), jnp.asarray(ids),
-                        jnp.asarray(iq), jnp.asarray(ic)))
-        else:
-            out.append((*(stacks_to_device([(c, l, sids)], "cpu")[0]), iq, ic))
+        out.append((jnp.asarray(c, jnp.int8), jnp.asarray(l), jnp.asarray(ids),
+                    jnp.asarray(iq), jnp.asarray(ic)))
     return tuple(out)
 
 
@@ -125,14 +126,14 @@ def test_sweep_multi_topk_matches(small_db, local):
     qs = _queries(seqs, np.random.default_rng(2))
     profs = np.stack([make_padded_profile(x, PADDED, rows=64) for x in qs])
     mrs = [len(x) for x in qs]
-    (*_, jtopk, _, _), (*_, ttopk, _, _) = _sweeps(local, eff_limit=2**24 - 1, nlimit=255)
+    (*_, jtopk, _, _), port = _sweeps(local, eff_limit=2**24 - 1, nlimit=255)
     want = jtopk(jnp.asarray(profs), _pair_stacks(grouped, 3, True),
                  jnp.asarray(mrs, jnp.int32), 12, 3)
-    got = ttopk(torch.as_tensor(profs), _pair_stacks(grouped, 3, False), mrs, 12, 3)
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    top_s = got[0].numpy()
-    assert any(len(set(r)) < len(r) for r in top_s), "no tie was exercised"
+    got = port.topk_many(torch.as_tensor(profs), _pair_stacks(grouped, 3, False), mrs, 12)
+    np.testing.assert_array_equal(got.scores, np.asarray(want[0]))
+    np.testing.assert_array_equal(got.ids, np.asarray(want[1]))
+    assert got.overflow == bool(want[2]) and got.n_flagged == int(want[3])
+    assert any(len(set(r)) < len(r) for r in got.scores), "no tie was exercised"
 
 
 @pytest.mark.parametrize("local", [True, False], ids=["sw", "nw"])
@@ -141,16 +142,26 @@ def test_sweep_ladder_topk_matches(homolog_db, local):
     grouped = db.grouped_stacks(8, 16)
     q = seqs[4]
     prof = make_padded_profile(q, PADDED)
-    (*_, jladder), (*_, tladder) = _sweeps(local, eff_limit=255)
+    (jsweep, *_, jladder), port = _sweeps(local, eff_limit=255)
     jout, js, ji = jladder(jnp.asarray(prof), _jax_stacks(grouped, True), jnp.int32(len(q)), 9)
-    tout, ts, ti = tladder(torch.as_tensor(prof), stacks_to_device(grouped, "cpu"), len(q), 9)
+    got = port.ladder(torch.as_tensor(prof), stacks_to_device(grouped, "cpu"), len(q), 9)
     jout = np.asarray(jout).astype(np.int64)
-    tout = tout.numpy()
-    np.testing.assert_array_equal(tout[:18], jout[:18])  # top scores, top ids
-    np.testing.assert_array_equal(tout[18:], jout[18:] & 0xFFFFFFFF)  # packed flags
-    assert tout[18:].any()
-    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
-    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(got.scores, jout[:9])
+    np.testing.assert_array_equal(got.ids, jout[9:18])
+    # The reference's packed flags, and its plain sweep's flags on real lanes.
+    np.testing.assert_array_equal(got.lane_flags,
+                                  kernels.unpack_flags(jout[18:] & 0xFFFFFFFF, len(js)))
+    _, jf = jsweep(jnp.asarray(prof), _jax_stacks(grouped), jnp.int32(len(q)))
+    np.testing.assert_array_equal(got.lane_flags, np.asarray(jf) & (np.asarray(ji) < 2**31 - 1))
+    assert got.lane_flags.any()
+    np.testing.assert_array_equal(got.lane_scores.numpy(), np.asarray(js))
+
+
+def _same_reduced(got, want):
+    """The port's named ``reduced`` against the reference's tuple."""
+    for g, w in zip((got.scores, got.records, got.entries, got.frames), want[:4]):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    assert got.overflow == bool(want[4]) and got.n_flagged == int(want[5])
 
 
 @pytest.mark.parametrize("local", [True, False], ids=["sw", "nw"])
@@ -162,13 +173,12 @@ def test_sweep_reduced_matches(small_db, local):
     profs = np.stack([make_padded_profile(f, PADDED, rows=64) for f in frames])
     mrs = [len(f) for f in frames]
     group_of = (np.arange(len(db)) // 2).astype(np.int32)  # two entries a record
-    (*_, jred, _), (*_, tred, _) = _sweeps(local, eff_limit=2**24 - 1, nlimit=255)
+    (*_, jred, _), port = _sweeps(local, eff_limit=2**24 - 1, nlimit=255)
     want = jred(jnp.asarray(profs), _pair_stacks(grouped, 4, True),
                 jnp.asarray(mrs, jnp.int32), jnp.asarray(group_of), 8, 4)
-    got = tred(torch.as_tensor(profs), _pair_stacks(grouped, 4, False), mrs,
-               torch.as_tensor(group_of), 8, 4)
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    got = port.reduced(torch.as_tensor(profs), _pair_stacks(grouped, 4, False), mrs,
+                       torch.as_tensor(group_of), 8)
+    _same_reduced(got, want)
 
 
 def test_best_kernel_choices():
@@ -353,10 +363,9 @@ def test_sweep_reduced_identity_records(small_db, local):
     profs = np.stack([make_padded_profile(f, PADDED, rows=96) for f in frames])
     mrs = [len(f) for f in frames]
     ident = np.arange(len(db), dtype=np.int32)
-    (*_, jred, _), (*_, tred, _) = _sweeps(local, eff_limit=2**24 - 1, nlimit=255)
+    (*_, jred, _), port = _sweeps(local, eff_limit=2**24 - 1, nlimit=255)
     want = jred(jnp.asarray(profs), _pair_stacks(grouped, 6, True),
                 jnp.asarray(mrs, jnp.int32), jnp.asarray(ident), 10, 6)
-    got = tred(torch.as_tensor(profs), _pair_stacks(grouped, 6, False), mrs, None, 10, 6)
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    assert set(got[3].tolist()) <= {0, 3, 5}  # the first of the tied frames
+    got = port.reduced(torch.as_tensor(profs), _pair_stacks(grouped, 6, False), mrs, None, 10)
+    _same_reduced(got, want)
+    assert set(got.frames.tolist()) <= {0, 3, 5}  # the first of the tied frames

@@ -12,6 +12,7 @@ sweep and one fetch a shard a call.
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from libssa_tpu import matrices as j_matrices
 from libssa_tpu.constants import BitWidth as JBitWidth
@@ -285,14 +286,16 @@ def test_fault_injection_requeues_search_many():
     _same(got, want, ref, single)
 
 
-def test_fault_injection_requeues_search_reduced():
+@pytest.mark.parametrize("records", ["translated", "identity"])
+def test_fault_injection_requeues_search_reduced(records):
     rng = np.random.default_rng(41)
     nt = _nt_seqs(rng, 25)
     frames = [rng.integers(0, 20, int(n)).astype(np.uint8) for n in (14, 21)]
     trio = Trio(nt, 4, symtype="NUCLEOTIDE", translated=True)
-    want = trio.port.search_reduced(frames, trio.orig, 6, True)
+    group_of = trio.orig if records == "translated" else None
+    want = trio.port.search_reduced(frames, group_of, 6, True)
     trio.port.fault_injector = trio.ref.fault_injector = _boom
-    got, ref, single = trio.run("search_reduced", frames, trio.orig, 6, True)
+    got, ref, single = trio.run("search_reduced", frames, group_of, 6, True)
     assert trio.port.requeued_chunks > 0
     assert trio.port.requeued_chunks == trio.ref.requeued_chunks
     assert got is not None
@@ -356,6 +359,21 @@ def test_sharded_dispatch_counts():
     _same(eng.search_reduced([q, q[:20]], None, 5, stats=st),
           trio.ref.search_reduced([q, q[:20]], None, 5))
     assert (st.dispatches, st.fetches) == (4, 4)
+
+
+def test_sharded_search_many_records_its_waits():
+    """Under a profiler each shard sweep records its waits on the device: one
+    a width group's index upload and one for its fetch."""
+    trio = Trio(_seqs(60, seed=9, minlen=4, maxlen=200), 4)
+    rng = np.random.default_rng(10)
+    queries = [rng.integers(0, 20, n).astype(np.uint8) for n in (24, 40)]  # two heights
+    st = SearchStats()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = trio.port.search_many(queries, 5, stats=st)
+    _same(got, trio.single.search_many(queries, 5))
+    groups = [len(s) for s in trio.port._stacks().values() if s]
+    assert len(groups) == 4 and st.dispatches == 2 * len(groups)
+    assert [s.name for s in st.spans] == ["device.wait"] * (2 * sum(g + 1 for g in groups))
 
 
 def test_sharded_fanout_rung_stats():

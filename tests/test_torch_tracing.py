@@ -175,6 +175,22 @@ def test_rescue_engines_spans_sit_under_the_outer_request(monkeypatch):
     assert stats.dispatches > 2
 
 
+def test_ladder_search_waits_for_its_fetch():
+    """A single-query BIT8 search: one sweep, and its one fetch in a
+    ``device.wait`` span."""
+    rng = np.random.default_rng(4)
+    seqs = [_codes(rng, int(rng.integers(20, 90))) for _ in range(30)]
+    db = SequenceDB.from_sequences([f"s{i}" for i in range(len(seqs))], seqs,
+                                   SymType.AMINOACID)
+    eng = SearchEngine(db, builtin("BLOSUM62"), 10, 1, SearchParams(batch_size=8),
+                       device="cpu")
+    stats = SearchStats()
+    hits = _traced(lambda: eng.search(seqs[5], 4, True, BitWidth.BIT8, stats))
+    assert hits[1][0] == 5
+    assert [s.name for s in stats.spans] == ["device.wait"]
+    assert (stats.dispatches, stats.fetches) == (1, 1)
+
+
 def test_trace_writes_spans_on_the_profilers_clock(ctx, tmp_path):
     with profiling.trace(str(tmp_path)):
         ctx.align_many(ctx.queries, 3, mode=ComputeMode.ALIGNMENT)

@@ -24,7 +24,7 @@ from torch.profiler import ProfilerActivity, profile
 from libssa_tpu_torch import api
 from libssa_tpu_torch.constants import AlignType, BitWidth, ComputeMode, Strand, SymType
 from libssa_tpu_torch.io.db import SequenceDB
-from libssa_tpu_torch.search import manager
+from libssa_tpu_torch.search import kernels, manager
 from libssa_tpu_torch.search.manager import SearchStats
 from libssa_tpu_torch.util import profiling
 from libssa_tpu_torch.util.profiling import Span
@@ -189,6 +189,7 @@ def test_tiny_cell_without_the_frame_spans_reads_none(root, monkeypatch):
         return profiling.span(stats, name, **counts)
     monkeypatch.setattr(api, "span", without)
     monkeypatch.setattr(manager, "span", without)
+    monkeypatch.setattr(kernels, "span", without)
     r = cell(root, True)
     assert r["correct"] and "reduced_host_ms.translated" not in r["metrics"]
 
