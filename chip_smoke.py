@@ -7,13 +7,14 @@ Drives the port's main path — database search through ``SearchEngine`` and
 (500,000 lognormal subjects, about 174M residues). Phases, one line each:
 
 1. build K1 (``libssa_tpu_torch/csrc/interseq.cu``) with nvcc, and beside
-   it K3, K2, the leaf kernel (``csrc/leafbatch.cu``), the probes
+   it K3, K2, the leaf kernel (``csrc/leafbatch.cu``), the hit kernel
+   (``csrc/hitbatch.cu``), the probes
    (``csrc/probes.cu``, ``csrc/lp_rowsweep.cu``), K3's stage-cut builds and
    the parts of ``csrc/interseq_variants.cu``, one nvcc each, all in
    parallel; K1's registers, local bytes and blocks an SM for each
    instantiation at 1, 8 and 16 warps down the query, K2's and K3's at each
    band height and warps count a block whose shared memory fits, and the
-   leaf kernel's;
+   leaf kernel's and the hit kernel's;
 2. K1 against its plain PyTorch version on random inputs (exact equality),
    at every warps count and at the wrapper's choice;
 3. the 500k-subject search: 8 queries through ``search_many`` (SW, k=10),
@@ -22,7 +23,8 @@ Drives the port's main path — database search through ``SearchEngine`` and
 4. those hit lists against the same engine forced onto the plain version,
    and every reported hit rescored by the scalar NumPy oracle;
 5. ``SSAContext(device="cuda")`` on ``tests/testdata`` (ALIGNMENT-mode
-   ``sw_align``, whose traceback cross-checks K1; ``nw_align``;
+   ``sw_align``, whose traceback cross-checks K1 and whose hits are one
+   launch of the hit kernel, counted for the kernels line; ``nw_align``;
    ``align_many``) against ``SSAContext(device="cpu")``;
 6. K1 at four shapes, BLOSUM62 11/1: bench.py's kernel shape (SW, m=256,
    B=8192, n=512, track_range), a filled launch (B = 65,536), the shape of
@@ -137,7 +139,17 @@ Drives the port's main path — database search through ``SearchEngine`` and
     ``LEAF_CELLS``, one of two rows, a batch of one leaf), int32 and int64;
     then ``mito_align``'s pair, its ops string with the leaves on the card
     equal to the one with them on the host, and the kernel's time at that
-    pair's leaf batch beside the plain version's and its bound.
+    pair's leaf batch beside the plain version's and its bound;
+17. the hit kernel (``csrc/hitbatch.cu``, a call's top-k tracebacks in one
+    launch) against its plain version (``aligner.align_pair`` hit by hit):
+    drawn batches of 1-25 hits up to 600 x 600 (stripe and chunk edges
+    among them), five matrices, Q >= R >= 0, SW and NW, int32 and int64;
+    then ``sprot_single``'s shapes, 10 homolog hits of 361 x 361 (the
+    queries' mean length) and of 767 x 767 (near their p95), SW: score,
+    coordinates and ops equal to the plain version's, the kernel's time
+    (profiler) and ``align_batch``'s (upload, launch, fetch, unpack) beside
+    the plain version's and the bound, the direction bytes written once and
+    read once at 3.35 TB/s.
 
 The second-to-last line is a JSON object with each kernel's launches by
 the main path, its largest difference from the plain version, its time,
@@ -168,6 +180,7 @@ K3_SOURCE = "libssa_tpu_torch/csrc/longpair.cu"
 K2_REPLACES = "libssa_tpu/ops/ring_block_pallas.py:68"
 K2_SOURCE = "libssa_tpu_torch/csrc/ring_block.cu"
 LEAF_SOURCE = "libssa_tpu_torch/csrc/leafbatch.cu"
+HIT_SOURCE = "libssa_tpu_torch/csrc/hitbatch.cu"
 PROBES_SOURCE = "libssa_tpu_torch/csrc/probes.cu"
 ROWSWEEP_SOURCE = "libssa_tpu_torch/csrc/lp_rowsweep.cu"
 VARIANTS_SOURCE = "libssa_tpu_torch/csrc/interseq_variants.cu"
@@ -423,9 +436,12 @@ def phase34(dev):
 # -- phase 5 ----------------------------------------------------------------
 
 
-def phase5():
+def phase5() -> int:
+    """SSAContext on the card equal to SSAContext on the CPU, ALIGNMENT
+    mode included; returns the hit kernel's launches in the card's run."""
     from libssa_tpu_torch.constants import BitWidth, ComputeMode
     from libssa_tpu_torch.api import SSAContext
+    from libssa_tpu_torch.ops import hit_cuda
 
     def run(device):
         ctx = SSAContext(device=device)
@@ -441,13 +457,20 @@ def phase5():
         key = lambda hl: [(h.seq_id, h.score, h.cigar, h.q_begin, h.s_begin) for h in hl]
         return [key(sw), key(nw), *[key(hl) for hl in many]]
 
-    gpu, cpu = run("cuda"), run("cpu")
+    hit_cuda.launches = 0
+    gpu = run("cuda")
+    hit_launches = hit_cuda.launches
+    cpu = run("cpu")
     if gpu != cpu:
         fail(5, "SSAContext on cuda differs from SSAContext on cpu")
     if not gpu[0] or any(c is None for _, _, c, _, _ in gpu[0]):
         fail(5, "sw_align returned no traced hits")
+    if hit_launches == 0:
+        fail(5, "sw_align ALIGNMENT on cuda traced its hits without the hit kernel")
     say(f"phase 5 SSAContext(device='cuda'): sw_align ALIGNMENT ({len(gpu[0])} hits, "
-        "traceback cross-check passed), nw_align, align_many equal device='cpu'")
+        f"{hit_launches} hit-kernel launches, traceback cross-check passed), nw_align, "
+        "align_many equal device='cpu'")
+    return hit_launches
 
 
 # -- phase 6 ----------------------------------------------------------------
@@ -611,7 +634,8 @@ def build_kernels():
     import concurrent.futures
     import functools
 
-    from libssa_tpu_torch.ops import interseq_cuda, leaf_cuda, longpair_cuda, ring_block_cuda
+    from libssa_tpu_torch.ops import (
+        hit_cuda, interseq_cuda, leaf_cuda, longpair_cuda, ring_block_cuda)
 
     t0 = time.perf_counter()
 
@@ -627,17 +651,17 @@ def build_kernels():
     parts = [functools.partial(_interseq_variants.lib, p)
              for p in range(_interseq_variants.PARTS)]
     libs = (interseq_cuda._lib, longpair_cuda._lib, ring_block_cuda._lib, leaf_cuda._lib,
-            functools.partial(_common.lib, "chain"), functools.partial(_common.lib, "tile"),
-            r3_lp_bisect._lib, *parts, *cuts)
+            hit_cuda._lib, functools.partial(_common.lib, "chain"),
+            functools.partial(_common.lib, "tile"), r3_lp_bisect._lib, *parts, *cuts)
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
-        t_k1, t_k3, t_k2, t_leaf, t_chain, t_tile, t_rs, *t_rest = pool.map(build, libs)
+        t_k1, t_k3, t_k2, t_leaf, t_hit, t_chain, t_tile, t_rs, *t_rest = pool.map(build, libs)
     t_parts, t_cuts = t_rest[:len(parts)], t_rest[len(parts):]
     say(f"phase 1 build K1 ({K1_SOURCE}), K3 ({K3_SOURCE}), K2 ({K2_SOURCE}), the leaf "
-        f"kernel ({LEAF_SOURCE}), the probes "
+        f"kernel ({LEAF_SOURCE}), the hit kernel ({HIT_SOURCE}), the probes "
         f"({PROBES_SOURCE} in two builds, {ROWSWEEP_SOURCE}), K3's {len(cuts)} stage-cut "
         f"builds and K1's variants ({VARIANTS_SOURCE} in {len(parts)} parts), nvcc sm_90a "
         f"in parallel: ok, K1 {t_k1:.1f} s, K3 {t_k3:.1f} s, K2 {t_k2:.1f} s, leaf kernel "
-        f"{t_leaf:.1f} s, probes "
+        f"{t_leaf:.1f} s, hit kernel {t_hit:.1f} s, probes "
         f"{t_chain:.1f} s (chain) and {t_tile:.1f} s (tile), row sweep {t_rs:.1f} s, stage "
         f"cuts {max(t_cuts):.1f} s, K1 variants "
         + " ".join(f"{t:.1f}" for t in t_parts) + " s")
@@ -667,9 +691,10 @@ def build_kernels():
                 rows.append(f"{'int64' if wide else 'int32'} {'SW' if local else 'NW'} rows "
                             f"{ch} warps {w}: {a['regs']},{a['local']},{a['blocks_an_sm']}")
     say("phase 1 K3 instantiations (registers, local bytes, blocks an SM): " + "; ".join(rows))
-    say("phase 1 leaf kernel (registers, local bytes): " + "; ".join(
-        f"{'int64' if wide else 'int32'} {a['regs']},{a['local']}"
-        for wide, a in ((w, leaf_cuda.attrs(w)) for w in (False, True))))
+    for name, mod in (("leaf kernel", leaf_cuda), ("hit kernel (SW)", hit_cuda)):
+        say(f"phase 1 {name} (registers, local bytes): " + "; ".join(
+            f"{'int64' if wide else 'int32'} {a['regs']},{a['local']}"
+            for wide, a in ((w, mod.attrs(w)) for w in (False, True))))
 
 
 def k3_configs(itemsize):
@@ -2576,6 +2601,141 @@ def phase16(dev):
     return leaf
 
 
+HIT_DRAWS = 40  # phase 17: drawn batches
+HIT_LENGTHS = (361, 767)  # phase 17: sprot_single's mean query length, and near its p95
+HIT_K = 10  # phase 17: sprot_single's hits a query
+
+
+def hit_homolog(rng, q, hi: int, sub_rate=0.3, indel_rate=0.01) -> np.ndarray:
+    """A homolog of ``q`` as the benchmark plants them: substitutions, and
+    indels of 1-3 residues, the length kept."""
+    out = q.copy()
+    swap = rng.random(len(q)) < sub_rate
+    out[swap] = rng.integers(0, hi, int(swap.sum()))
+    for at in np.flatnonzero(rng.random(len(q)) < indel_rate):
+        k = int(rng.integers(1, 4))
+        if rng.random() < 0.5:  # a deletion, refilled at the end
+            out = np.concatenate([out[:at], out[at + k:], rng.integers(0, hi, k)])
+        else:
+            out = np.concatenate([out[:at], rng.integers(0, hi, k), out[at:-k]])
+    return out[:len(q)].astype(np.uint8)
+
+
+def hit_batch_of(rng, hi, shapes, shared_query=False):
+    """A code buffer and a hit table for ``shapes``, each subject a homolog
+    of its query; with ``shared_query`` one query for every hit."""
+    parts, hits, at = [], [], 0
+    q = rng.integers(0, hi, shapes[0][0]).astype(np.uint8)
+    if shared_query:
+        parts.append(q)
+        at = len(q)
+    for m, n in shapes:
+        if not shared_query:
+            q = rng.integers(0, hi, m).astype(np.uint8)
+            parts.append(q)
+            at += m
+        s = np.resize(hit_homolog(rng, q, hi), n)
+        hits.append((at - m if not shared_query else 0, m, at, n))
+        parts.append(s)
+        at += n
+    return np.concatenate(parts), np.array(hits, np.int64)
+
+
+def plain_hits(codes, hits, mat, Q, R, local) -> list:
+    """The hit kernel's plain version: aligner.align_pair hit by hit on the
+    CPU, at Gotoh's (Q, R)."""
+    from libssa_tpu_torch.search import aligner
+
+    return [aligner.align_pair(codes[qo:qo + m], codes[so:so + n], mat, Q, R, local,
+                               first_residue_opens=False, device="cpu")
+            for qo, m, so, n in hits.tolist()]
+
+
+def phase17(dev, launches: int) -> dict:
+    """The hit kernel against its plain version over drawn batches, then at
+    sprot_single's shapes, timed; returns the kernels line's entry (the
+    361 x 361 batch), with ``launches`` (phase 5's, on the main path) as
+    its count."""
+    import torch
+
+    from libssa_tpu_torch import matrices
+    from libssa_tpu_torch.ops import hit_cuda
+    from libssa_tpu_torch.search import aligner
+
+    mats = draw_matrices()
+    seed = DRAW_SEED + 17
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    before = hit_cuda.launches
+    for i in range(HIT_DRAWS):
+        name = str(rng.choice(sorted(mats)))
+        mat, hi = mats[name]
+        Q, R = draw_gaps(rng)
+        shapes = [(draw_size(rng, 600), draw_size(rng, 600))
+                  for _ in range(1 if i == 0 else draw_size(rng, 25))]
+        codes, hits = hit_batch_of(rng, hi, shapes)
+        for local in (True, False):
+            want = plain_hits(codes, hits, mat, Q, R, local)
+            for wide in (False, True):
+                got = hit_cuda.hit_batch(codes, hits, mat, Q, R, local, dev, wide=wide)
+                if hit_cuda.unpack(got.cpu().numpy(), hits) != want:
+                    fail(17, f"seed {seed} draw {i}: the hit kernel differs from its plain "
+                             f"version: (m, n) {shapes} {name} Q={Q} R={R} "
+                             f"{'SW' if local else 'NW'} wide={wide}")
+    say(f"phase 17 hit kernel vs its plain version: {HIT_DRAWS} draws (seed {seed}) of "
+        f"1-25 hits up to 600 x 600, SW and NW, int32 and int64, equal "
+        f"({hit_cuda.launches - before} launches, {time.perf_counter() - t0:.1f} s)")
+
+    b62 = matrices.builtin("BLOSUM62").scores
+    Q, R = 12, 1  # sprot_single: BLOSUM62, gaps 11/1
+    entry, rows = None, []
+    for m in HIT_LENGTHS:
+        codes, hits = hit_batch_of(rng, 20, [(m, m)] * HIT_K, shared_query=True)
+        pairs = [(codes[:m], codes[so:so + n]) for _, _, so, n in hits.tolist()]
+        t1 = time.perf_counter()
+        want = plain_hits(codes, hits, b62, Q, R, True)
+        t_plain = 1e3 * (time.perf_counter() - t1)
+        got = hit_cuda.unpack(hit_cuda.hit_batch(codes, hits, b62, Q, R, True, dev)
+                              .cpu().numpy(), hits)
+        if got != want:
+            fail(17, f"{HIT_K} hits of {m} x {m}: the kernel's tracebacks differ from the "
+                     "plain version's")
+        if aligner.align_batch(pairs, b62, 11, 1, True, device=dev) != want:
+            fail(17, f"{HIT_K} hits of {m} x {m}: align_batch on the card differs")
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                hit_cuda.hit_batch(codes, hits, b62, Q, R, True, dev)
+            torch.cuda.synchronize()
+        t_kernel = sum(e.end_ns() - e.start_ns() for e in prof.profiler.kineto_results.events()
+                       if str(e.device_type()).endswith("CUDA") and "hit_kernel" in e.name())
+        t_kernel /= 5 * 1e6
+        t_events, _ = cuda_ms(lambda: hit_cuda.hit_batch(codes, hits, b62, Q, R, True, dev),
+                              reps=5)
+        walls = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            aligner.align_batch(pairs, b62, 11, 1, True, device=dev)
+            walls.append(1e3 * (time.perf_counter() - t1))
+        dir_total = hit_cuda.layout(hits)["dir_total"]
+        b_ms = 1e3 * 2 * dir_total / HBM_BYTES_PER_S
+        ops = sum(len(tb.cigar) for tb in got)
+        rows.append(f"{HIT_K} x {m}^2 ({ops} ops, {dir_total} direction bytes): kernel "
+                    f"{t_kernel:.3f} ms (profiler, 5 launches), {t_events:.3f} ms (events, "
+                    f"upload and launch), align_batch {min(walls):.3f}-{max(walls):.3f} ms "
+                    f"(upload, launch, fetch, unpack), plain version {t_plain:.1f} ms, bound "
+                    f"{b_ms:.4f} ms")
+        if entry is None:
+            entry = {"name": "hit batch (a call's top-k hits: fill, end cell and walk)",
+                     "route": "cuda", "source": HIT_SOURCE, "replaces": None,
+                     "launches": launches, "max_abs_err": 0,
+                     "ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms,
+                     "bound_by": "bytes", "library_ms": None}
+    say("phase 17 sprot_single's shapes, SW, BLOSUM62 11/1, equal to the plain version: "
+        + "; ".join(rows) + f", {card_line()}")
+    return entry
+
+
 def bound_ms(cells: int, cell: tuple[float, float], nbytes: int) -> tuple[float, str]:
     """The least time for ``cells`` DP cells of ``cell`` = (int32 adds, DPX)
     each, in ms, and what bounds it."""
@@ -2602,7 +2762,7 @@ def main() -> int:
     build_kernels()
     err2 = phase2(dev)
     launches, _, _, eng = phase34(dev)
-    phase5()
+    hit_launches = phase5()
     t_k1, t_plain = phase6(dev, eng)["kernel"]
     launches += phase14(dev, eng)
     del eng
@@ -2615,6 +2775,7 @@ def main() -> int:
     probe_entries = phase12(dev)
     variant_entries = phase13(dev)
     leaf_entry = phase16(dev)  # after every count of the main path is read
+    hit_entry = phase17(dev, hit_launches)
 
     # bound_ms at each timed shape: K1 at bench.py's kernel shape (subject
     # codes in, one score and range out per subject), K3 at 8a SW (codes in),
@@ -2657,7 +2818,7 @@ def main() -> int:
         "bound_ms": b_k2[0],
         "bound_by": b_k2[1],
         "library_ms": None,
-    }, leaf_entry, *probe_entries, *variant_entries]}))
+    }, leaf_entry, hit_entry, *probe_entries, *variant_entries]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

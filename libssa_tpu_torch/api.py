@@ -16,10 +16,13 @@ module-level default context for reference-style scripts:
 
 ``device`` defaults to "cuda" and raises where CUDA is absent; "cpu" runs
 only when it is asked for. SCORE-mode ``align_pair`` runs the long-pair
-scorer (K3 on the card). Tracebacks above ``aligner.MATRIX_CELL_LIMIT``
-cells run the linear-space aligner, whose large levels run on K2 on the
-card. ``set_device_count(n > 1)`` shards the database over n devices
-(``parallel/sharded.py``): on a "cpu" context, n shards on the CPU.
+scorer (K3 on the card). ALIGNMENT mode traces a call's hits together
+(``aligner.align_batch``): on the card, those of at most
+``aligner.MATRIX_CELL_LIMIT`` cells in one launch of the hit kernel
+(``ops/hit_cuda.py``); larger ones run the linear-space aligner, whose
+large levels run on K2 on the card. ``set_device_count(n > 1)`` shards
+the database over n devices (``parallel/sharded.py``): on a "cpu"
+context, n shards on the CPU.
 
 The enums are the port's own (``libssa_tpu_torch.constants``); a member of
 the JAX package's enums raises ``TypeError``.
@@ -378,29 +381,31 @@ class SSAContext:
             make_db_mesh(devices=local[: n // world]), self.params,
         )
 
-    def _fill_traceback(
-        self, hit: Alignment, qc, sc, local: bool, stats: SearchStats = None
-    ) -> None:
-        """Traceback + decoration of one hit (ALIGNMENT mode).
+    def _fill_tracebacks(self, todo, local: bool, stats: SearchStats = None) -> None:
+        """Traceback + decoration of hits (ALIGNMENT mode): ``todo`` holds
+        (hit, query codes, subject codes), aligned together by
+        ``aligner.align_batch`` (on the card, one launch of the hit kernel).
 
-        Cross-checks the traceback score against the search score
+        Cross-checks each traceback score against its search score
         (ScoreMismatchError on disagreement).
         """
+        if not todo:
+            return
         t0 = time.perf_counter()
-        with span(stats, "traceback.fill"):
-            tb = aligner.align_pair(
-                qc, sc, self.matrix.scores, self.gap_open, self.gap_extend,
-                local, self.params.first_residue_opens, stats=stats,
-                device=self.device,
-            )
+        tbs = aligner.align_batch(
+            [(qc, sc) for _, qc, sc in todo], self.matrix.scores, self.gap_open,
+            self.gap_extend, local, self.params.first_residue_opens, stats=stats,
+            device=self.device,
+        )
         if stats is not None:
             stats.aligner_seconds += time.perf_counter() - t0
-            stats.aligner_cells += len(qc) * len(sc)
-        _check_scores_match(tb.score, hit.score)
-        hit.q_begin, hit.q_end = tb.q_begin, tb.q_end
-        hit.s_begin, hit.s_end = tb.s_begin, tb.s_end
-        hit.cigar = tb.cigar
-        hit.aligned = self._display(tb, qc, sc, stats)
+            stats.aligner_cells += sum(len(qc) * len(sc) for _, qc, sc in todo)
+        for (hit, qc, sc), tb in zip(todo, tbs):
+            _check_scores_match(tb.score, hit.score)
+            hit.q_begin, hit.q_end = tb.q_begin, tb.q_end
+            hit.s_begin, hit.s_end = tb.s_begin, tb.s_end
+            hit.cigar = tb.cigar
+            hit.aligned = self._display(tb, qc, sc, stats)
 
     def _display(self, tb, qc, sc, stats) -> tuple[str, str, str]:
         """The display rows of one alignment, in a ``display`` span."""
@@ -441,7 +446,7 @@ class SSAContext:
             # Plain single-sequence search: the engine's device-side top-k.
             label, codes = q_seqs[0]
             top_scores, top_ids = engine.search(codes, k, local, bit_width, stats)
-            hits = []
+            hits, todo = [], []
             for score, rid in zip(top_scores, top_ids):
                 rid = int(rid)
                 hit = Alignment(
@@ -452,10 +457,9 @@ class SSAContext:
                     strand=label,
                 )
                 if mode is ComputeMode.ALIGNMENT:
-                    self._fill_traceback(
-                        hit, codes, search_db.sequence(rid), local, stats
-                    )
+                    todo.append((hit, codes, search_db.sequence(rid)))
                 hits.append(hit)
+            self._fill_tracebacks(todo, local, stats)
             return AlignmentList(hits=hits, stats=stats)
 
         # Frame-fanout searches (multi-strand/frame queries, translated DBs)
@@ -467,7 +471,7 @@ class SSAContext:
         )
         if reduced is not None:
             top_s, top_r, top_e, top_f = reduced
-            hits = []
+            hits, todo = [], []
             for score, rid, entry, fidx in zip(top_s, top_r, top_e, top_f):
                 rid, entry, fidx = int(rid), int(entry), int(fidx)
                 label, qc = q_seqs[fidx]
@@ -482,10 +486,9 @@ class SSAContext:
                     ),
                 )
                 if mode is ComputeMode.ALIGNMENT:
-                    self._fill_traceback(
-                        hit, qc, search_db.sequence(entry), local, stats
-                    )
+                    todo.append((hit, qc, search_db.sequence(entry)))
                 hits.append(hit)
+            self._fill_tracebacks(todo, local, stats)
             return AlignmentList(hits=hits, stats=stats)
 
         best_scores = None
@@ -528,7 +531,7 @@ class SSAContext:
             best_scores[real], np.nonzero(real)[0], k
         )
 
-        hits = []
+        hits, todo = [], []
         label_codes = dict(q_seqs)
         for score, rid in zip(top_scores, top_ids):
             rid = int(rid)
@@ -542,11 +545,11 @@ class SSAContext:
                 db_frame=frame_labels[entry] if frame_labels is not None else None,
             )
             if mode is ComputeMode.ALIGNMENT:
-                self._fill_traceback(
-                    hit, label_codes[hit.strand], search_db.sequence(entry),
-                    local, stats,
+                todo.append(
+                    (hit, label_codes[hit.strand], search_db.sequence(entry))
                 )
             hits.append(hit)
+        self._fill_tracebacks(todo, local, stats)
         return AlignmentList(hits=hits, stats=stats)
 
     def align_pair(
@@ -562,8 +565,9 @@ class SSAContext:
         strand or frame with the long-pair scorer (``ops.longpair``: K3 on
         the card, any pair size, O(m + n) device memory); for genome-scale
         pairs this is the path to use. ``params.kernel`` "plain" pins the
-        plain PyTorch version. ALIGNMENT mode above
-        ``aligner.MATRIX_CELL_LIMIT`` cells runs the linear-space
+        plain PyTorch version. ALIGNMENT mode aligns every strand or frame
+        in one ``aligner.align_batch``: on the card one launch of the hit
+        kernel; above ``aligner.MATRIX_CELL_LIMIT`` cells the linear-space
         Myers-Miller aligner (``search/hirschberg.py``), whose large levels
         run on K2 on the card.
         """
@@ -605,14 +609,13 @@ class SSAContext:
                     stats=stats,
                 )
             t0 = time.perf_counter()
+            tbs = aligner.align_batch(
+                [(qc, sc) for _, qc in q_seqs], self.matrix.scores, self.gap_open,
+                self.gap_extend, local, self.params.first_residue_opens,
+                stats=stats, device=self.device,
+            )
             best = None
-            for label, qc in q_seqs:
-                with span(stats, "traceback.fill"):
-                    tb = aligner.align_pair(
-                        qc, sc, self.matrix.scores, self.gap_open, self.gap_extend,
-                        local, self.params.first_residue_opens, stats=stats,
-                        device=self.device,
-                    )
+            for (label, qc), tb in zip(q_seqs, tbs):
                 stats.aligner_cells += len(qc) * len(sc)
                 if best is None or tb.score > best[1].score:
                     best = (label, tb, qc)
@@ -666,7 +669,7 @@ class SSAContext:
             hitlists = engine.search_many(
                 [q.sequences[0][1] for q in queries], k, local, stats, bit_width
             )
-            out = []
+            out, todo = [], []
             for q, (top_s, top_i) in zip(queries, hitlists):
                 hits = []
                 for score, sid in zip(top_s, top_i):
@@ -678,12 +681,12 @@ class SSAContext:
                         strand=q.sequences[0][0],
                     )
                     if mode is ComputeMode.ALIGNMENT:
-                        self._fill_traceback(
-                            hit, q.sequences[0][1], self.db.sequence(int(sid)),
-                            local, stats,
+                        todo.append(
+                            (hit, q.sequences[0][1], self.db.sequence(int(sid)))
                         )
                     hits.append(hit)
                 out.append(AlignmentList(hits=hits, stats=stats))
+            self._fill_tracebacks(todo, local, stats)
             return out
 
     def sw_align(

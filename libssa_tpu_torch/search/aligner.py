@@ -2,7 +2,9 @@
 
 The port's copy of ``libssa_tpu/search/aligner.py`` (NumPy, unchanged but
 for ``align_pair``'s ``device``, which the linear-space path above
-``MATRIX_CELL_LIMIT`` runs its large levels on).
+``MATRIX_CELL_LIMIT`` runs its large levels on), and ``align_batch``: the
+hits of one call solved together, on a CUDA device in one launch of the hit
+kernel (``ops/hit_cuda.py``) a batch.
 
 Counterpart of the reference's ``src/algo/aligner.c`` (SURVEY.md §3.3): after
 the score search picks the top-k hits, each hit is re-aligned with a full
@@ -17,9 +19,14 @@ are cross-checked in tests/test_aligner.py.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
+import torch
 
 from ..oracle import NEG, Traceback, _traceback_from, gap_qr
+from ..ops import hit_cuda
+from ..util.profiling import span
 
 
 def fill_matrices(q, s, sub, Q: int, R: int, local: bool):
@@ -118,3 +125,76 @@ def align_pair(
     else:
         i, j = m, n
     return _traceback_from(H, E, F, q, s, np.asarray(sub), Q, R, i, j, local=local)
+
+
+def align_batch(
+    pairs,
+    sub: np.ndarray,
+    gap_open: int,
+    gap_extend: int,
+    local: bool = True,
+    first_residue_opens: bool = True,
+    stats=None,
+    device="cuda",
+) -> list[Traceback]:
+    """``align_pair`` of every (q, s) of ``pairs``, in their order.
+
+    The pairs of at most ``MATRIX_CELL_LIMIT`` cells with both sequences
+    non-empty are traced together: on a CUDA ``device`` by
+    ``hit_cuda.hit_batch``, one upload, one launch and one fetch a run of
+    ``hit_cuda.groups``, each in a ``traceback.batch`` span (counts
+    ``hits``, ``cells``, ``device``: the hits solved on the card) with its
+    fetch in ``device.wait``; elsewhere by ``align_pair`` hit by hit, in one
+    such span with ``device`` 0. Every other pair runs ``align_pair`` alone
+    in a ``traceback.fill`` span: the linear-space path and the empty
+    sequences. ``stats`` (optional ``SearchStats``) also gets the card's
+    launch-to-fetch seconds (``aligner_device_seconds``).
+    """
+    out: list[Traceback | None] = [None] * len(pairs)
+    batch = []
+    for k, (q, s) in enumerate(pairs):
+        m, n = len(q), len(s)
+        if m * n > MATRIX_CELL_LIMIT or m == 0 or n == 0:
+            with span(stats, "traceback.fill"):
+                out[k] = align_pair(q, s, sub, gap_open, gap_extend, local,
+                                    first_residue_opens, stats=stats, device=device)
+        else:
+            batch.append(k)
+    if not batch:
+        return out
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        Q, R = gap_qr(gap_open, gap_extend, first_residue_opens)
+        tbs = _trace_on_card([pairs[k] for k in batch], np.asarray(sub), Q, R, local, dev,
+                             stats)
+    else:
+        cells = sum(len(pairs[k][0]) * len(pairs[k][1]) for k in batch)
+        with span(stats, "traceback.batch", hits=len(batch), cells=cells, device=0):
+            tbs = [align_pair(*pairs[k], sub, gap_open, gap_extend, local,
+                              first_residue_opens) for k in batch]
+    for k, tb in zip(batch, tbs):
+        out[k] = tb
+    return out
+
+
+def _trace_on_card(pairs, sub, Q, R, local, dev, stats) -> list[Traceback]:
+    """The pairs' tracebacks, one ``hit_cuda.hit_batch`` a run of ``groups``
+    over one buffer of their codes."""
+    seqs = [np.asarray(x, np.uint8) for pair in pairs for x in pair]
+    sizes = np.array([len(x) for x in seqs], np.int64)
+    starts = np.cumsum(sizes) - sizes
+    hits = np.stack([starts[0::2], sizes[0::2], starts[1::2], sizes[1::2]], axis=1)
+    codes = np.concatenate(seqs)
+    out = []
+    for lo, hi in hit_cuda.groups(hits):
+        part = hits[lo:hi]
+        cells = int((part[:, 1] * part[:, 3]).sum())
+        with span(stats, "traceback.batch", hits=hi - lo, cells=cells, device=hi - lo):
+            t0 = time.perf_counter()
+            res = hit_cuda.hit_batch(codes, part, sub, Q, R, local, dev)
+            with span(stats, "device.wait"):
+                res = res.cpu()  # the one fetch
+            if stats is not None:
+                stats.aligner_device_seconds += time.perf_counter() - t0
+            out.extend(hit_cuda.unpack(res.numpy(), part))
+    return out

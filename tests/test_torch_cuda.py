@@ -1,6 +1,6 @@
-"""K1, K3, K2, the search engine, the linear-space traceback, the probes'
-kernels and K1's variants on an NVIDIA GPU, against the plain version and
-the CPU.
+"""K1, K3, K2, the search engine, the linear-space traceback, the leaf and
+hit kernels, the probes' kernels and K1's variants on an NVIDIA GPU,
+against the plain version and the CPU.
 
 Every test here needs a card: it is marked ``cuda`` and skips without one.
 The file imports neither JAX nor the JAX package, so it also runs where
@@ -14,13 +14,16 @@ f32 and bf16 ops round exactly as their plain versions do.
 """
 import numpy as np
 import pytest
+import test_torch_hitbatch as hit_tests
 import torch
+from torch.profiler import ProfilerActivity, profile
 
-from libssa_tpu_torch import matrices, oracle
-from libssa_tpu_torch.constants import BitWidth, SymType
+from libssa_tpu_torch import alphabet, api, matrices, oracle
+from libssa_tpu_torch.constants import BitWidth, ComputeMode, SymType
 from libssa_tpu_torch.experiments import _interseq_variants as IV
 from libssa_tpu_torch.io.db import PAD_CODE, SequenceDB
 from libssa_tpu_torch.ops import (
+    hit_cuda,
     interseq,
     interseq_cuda,
     leaf_cuda,
@@ -31,7 +34,7 @@ from libssa_tpu_torch.ops import (
 )
 from libssa_tpu_torch.ops.mm_device import DevicePair
 from libssa_tpu_torch.ops.scoring import make_padded_profile
-from libssa_tpu_torch.search import hirschberg
+from libssa_tpu_torch.search import aligner, hirschberg
 from libssa_tpu_torch.search.manager import SearchEngine, SearchParams, SearchStats
 
 B62 = matrices.builtin("BLOSUM62")
@@ -545,6 +548,126 @@ def test_mito_shape_leaves_on_card_equal_host(dev, monkeypatch):
     want = hirschberg.align_pair_linear(q, s, sub, 20, 1, **kw)
     assert leaf_cuda.launches == before
     assert (got.score, got.cigar) == (want.score, want.cigar)
+
+
+def _plain_hits(codes, hits, sub, Q, R, local):
+    """The hit kernel's plain version: aligner.align_pair hit by hit at
+    Gotoh's (Q, R)."""
+    return [aligner.align_pair(codes[qo:qo + m], codes[so:so + n], sub, Q, R, local,
+                               first_residue_opens=False, device="cpu")
+            for qo, m, so, n in hits.tolist()]
+
+
+def _card_hits(stats) -> int:
+    """The hits a traced request solved on the card: its traceback.batch
+    spans' ``device`` counts."""
+    return sum(s.counts["device"] for s in stats.spans if s.name == "traceback.batch")
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
+@pytest.mark.parametrize("local", [True, False], ids=["sw", "nw"])
+def test_hit_kernel_matches_plain(dev, local, wide):
+    """The hit kernel against its plain version (aligner.align_pair hit by
+    hit, on the CPU) on batches of hits at stripe and chunk edges, BLOSUM62 and a
+    4-letter matrix full of ties, Q > R and Q = R; one launch a batch."""
+    rng = np.random.default_rng([local, wide])
+    ties = np.where(np.eye(4, dtype=bool), 2, -1)
+    shapes = [(1, 1), (1, 65), (65, 1), (31, 33), (32, 32), (33, 64), (64, 65), (400, 389),
+              (361, 361), (97, 410)]
+    for sub in (B62.scores, ties):
+        codes, hits = hit_tests.draw_batch(rng, sub.shape[0], shapes)
+        for Q, R in ((12, 1), (2, 2)):
+            want = _plain_hits(codes, hits, sub, Q, R, local)
+            before = hit_cuda.launches
+            got = hit_cuda.hit_batch(codes, hits, sub, Q, R, local, dev, wide=wide)
+            torch.cuda.synchronize()
+            assert hit_cuda.launches == before + 1 and got.device == dev
+            assert hit_cuda.unpack(got.cpu().numpy(), hits) == want
+
+
+def test_hit_kernel_at_sprot_single_shapes(dev):
+    """Ten homolog hits of 767 x 767 (sprot_single's long queries) in one
+    launch, SW, equal to the plain version; attributes within a warp's
+    budget."""
+    rng = np.random.default_rng(767)
+    codes, hits = hit_tests.draw_batch(rng, 20, [(767, 767)] * 10)
+    want = _plain_hits(codes, hits, B62.scores, 12, 1, True)
+    got = hit_cuda.hit_batch(codes, hits, B62.scores, 12, 1, True, dev)
+    assert hit_cuda.unpack(got.cpu().numpy(), hits) == want
+    assert all(tb.score > 0 and len(tb.cigar) > 500 for tb in want)
+    for wide in (False, True):
+        assert hit_cuda.attrs(wide)["local"] == 0
+
+
+def test_hit_wrapper_rejects_what_it_cannot_take(dev):
+    codes = np.zeros(40, np.uint8)
+    with pytest.raises(ValueError, match="outside"):
+        hit_cuda.hit_batch(codes, [(35, 10, 0, 10)], B62.scores, 12, 1, True, dev)
+    with pytest.raises(ValueError, match="Q >= R"):
+        hit_cuda.hit_batch(codes, [(0, 10, 0, 10)], B62.scores, 1, 2, True, dev)
+    with pytest.raises(ValueError, match="too large"):
+        hit_cuda.hit_batch(codes, [(0, 10, 0, 10)], B62.scores, 2**57, 1, True, dev)
+
+
+def _alignment_fields(lists):
+    return [[(h.seq_id, h.score, h.strand, h.q_begin, h.q_end, h.s_begin, h.s_end, h.cigar,
+              h.aligned) for h in hl] for hl in lists]
+
+
+def test_alignment_mode_on_card_equals_cpu(dev):
+    """sw_align, nw_align and align_many in ALIGNMENT mode on the card equal
+    the CPU's hit for hit; each call's hits are one hit-kernel launch (the
+    two strands of a nucleotide query too), counted on the card."""
+    rng = np.random.default_rng(9)
+    seqs = [rng.integers(0, 20, int(rng.integers(30, 400))).astype(np.uint8)
+            for _ in range(200)]
+    db = SequenceDB.from_sequences([f"s{i}" for i in range(200)], seqs, SymType.AMINOACID)
+    ctxs = []
+    for d in (dev, "cpu"):
+        c = api.SSAContext(d)
+        c.init_score_matrix("BLOSUM62")
+        c.init_gap_penalties(11, 1)
+        c.db = db
+        ctxs.append(c)
+    texts = [alphabet.decode(np.where(rng.random(len(seqs[k])) < 0.3,
+                                      rng.integers(0, 20, len(seqs[k])), seqs[k]),
+                             SymType.AMINOACID) for k in (4, 9, 17)]
+
+    def run(c):
+        qs = [c.init_sequence_fasta(t) for t in texts]
+        return [c.sw_align(qs[0], 10, BitWidth.EXACT, ComputeMode.ALIGNMENT),
+                c.nw_align(qs[1], 5, BitWidth.EXACT, ComputeMode.ALIGNMENT),
+                *c.align_many(qs, 10, ComputeMode.ALIGNMENT)]
+
+    before = hit_cuda.launches
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = run(ctxs[0])
+    assert hit_cuda.launches == before + 3
+    assert _alignment_fields(got) == _alignment_fields(run(ctxs[1]))
+    assert _card_hits(got[0].stats) == 10 and _card_hits(got[2].stats) == 30
+    with profile(activities=[ProfilerActivity.CPU]):
+        pair = [c.align_pair(c.init_sequence_fasta(texts[2]), alphabet.decode(
+            seqs[17], SymType.AMINOACID)) for c in ctxs]
+    assert _alignment_fields([pair[:1]]) == _alignment_fields([pair[1:]])
+    assert _card_hits(pair[0].stats) == 1 and _card_hits(pair[1].stats) == 0
+
+
+def test_hits_past_the_cell_limit_take_the_linear_path_on_card(dev, monkeypatch):
+    """A batch with a hit past MATRIX_CELL_LIMIT: that hit runs Myers-Miller
+    (K2 on the card), the rest one hit-kernel launch; all equal align_pair."""
+    monkeypatch.setattr(aligner, "MATRIX_CELL_LIMIT", 200_000)
+    monkeypatch.setattr(hirschberg, "DEVICE_MIN_CELLS", 1024)
+    rng = np.random.default_rng(10)
+    codes, hits = hit_tests.draw_batch(rng, 20, [(300, 280), (600, 500), (120, 130)])
+    pairs = [(codes[qo:qo + m], codes[so:so + n]) for qo, m, so, n in hits.tolist()]
+    st = SearchStats()
+    before = hit_cuda.launches
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = aligner.align_batch(pairs, B62.scores, 11, 1, True, stats=st, device=dev)
+    assert hit_cuda.launches == before + 1 and _card_hits(st) == 2
+    assert st.aligner_dispatches > 0  # the 600 x 500 hit on K2's levels
+    assert got == [aligner.align_pair(q, s, B62.scores, 11, 1, True, device="cpu")
+                   for q, s in pairs]
 
 
 # -- the probes (libssa_tpu_torch/experiments/) ------------------------------------

@@ -103,6 +103,19 @@ def test_align_many_sweeps_once_a_profile_height(ctx):
     assert [s.counts["columns"] > 0 for s in spans if s.name == "display"] == [True] * 9
 
 
+def test_align_many_traces_every_hit_in_one_batch(ctx):
+    """ALIGNMENT mode: the call's hits in one traceback.batch span under the
+    request's root, with their count and cells; on the CPU none on the card."""
+    lists = _traced(lambda: ctx.align_many(ctx.queries, 3, mode=ComputeMode.ALIGNMENT))
+    spans = lists[0].stats.spans
+    (batch,) = [s for s in spans if s.name == "traceback.batch"]
+    assert batch.parent == 0 and batch.counts["hits"] == 9 and batch.counts["device"] == 0
+    assert batch.counts["cells"] == sum(
+        len(q.sequences[0][1]) * len(ctx.db.sequence(h.seq_id))
+        for q, hl in zip(ctx.queries, lists) for h in hl)
+    assert profiling.count(spans, "traceback.fill") == 0
+
+
 @pytest.mark.parametrize("on_device", [False, True])
 def test_linear_aligner_records_its_levels(monkeypatch, on_device):
     """Myers-Miller's divide levels, on host passes or (K2's plain version on
@@ -197,7 +210,7 @@ def test_trace_writes_spans_on_the_profilers_clock(ctx, tmp_path):
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     spans = [e for e in events if e.get("cat") == "ssa_span"]
     assert {e["name"] for e in spans} >= {"api.align_many", "search.many", "search.group",
-                                           "device.wait", "traceback.fill", "display"}
+                                           "device.wait", "traceback.batch", "display"}
     assert all(e["ph"] == "X" for e in spans)
     aten = [e for e in events if e.get("name", "").startswith("aten::") and "dur" in e]
     groups = [e for e in spans if e["name"] == "search.group"]
@@ -216,7 +229,7 @@ def test_cli_pair_xprof_writes_the_display_span(tmp_path, capsys):
                      "--device", "cpu", "--xprof", str(tmp_path)]) == 0
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     names = [e["name"] for e in events if e.get("cat") == "ssa_span"]
-    assert names == ["api.align_pair", "traceback.fill", "display"]
+    assert names == ["api.align_pair", "traceback.batch", "display"]
     assert "score=" in capsys.readouterr().out
 
 
