@@ -149,7 +149,14 @@ Drives the port's main path — database search through ``SearchEngine`` and
     coordinates and ops equal to the plain version's, the kernel's time
     (profiler) and ``align_batch``'s (upload, launch, fetch, unpack) beside
     the plain version's and the bound, the direction bytes written once and
-    read once at 3.35 TB/s.
+    read once at 3.35 TB/s;
+18. the amplicon_v4 cell's path on a small nucleotide database (300
+    entries of about 253 bases, identical and near-identical entries
+    planted): ``align_many`` of 6 reads, half reverse-complemented, NW,
+    both strands, ALIGNMENT, EXACT, k = 10, +2/-4, gaps 20/2, on the card
+    under a profiler against the same call on the CPU, field by field; it
+    fails where K1 ran int64 lanes (a ``search.reduced`` span's ``wide``),
+    a sweep was not NW (``local``), or the NW hit kernel made no launch.
 
 The second-to-last line is a JSON object with each kernel's launches by
 the main path, its largest difference from the plain version, its time,
@@ -166,6 +173,7 @@ import sys
 sys.modules["jax"] = None  # the port must run with JAX absent
 sys.modules["libssa_tpu"] = None  # and without the JAX package
 
+import contextlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
@@ -2736,6 +2744,69 @@ def phase17(dev, launches: int) -> dict:
     return entry
 
 
+# -- phase 18 ---------------------------------------------------------------
+
+
+def phase18(dev) -> None:
+    """Both-strand NW ``align_many`` with its tracebacks on the card equal to
+    the CPU's, on K1's int32 lanes and the NW hit kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from libssa_tpu_torch.api import SSAContext
+    from libssa_tpu_torch.constants import AlignType, BitWidth, ComputeMode, Strand, SymType
+    from libssa_tpu_torch.io.db import SequenceDB
+    from libssa_tpu_torch.ops import hit_cuda, interseq_cuda
+
+    rng = np.random.default_rng(18)
+    seqs = [rng.integers(0, 4, int(rng.integers(241, 266))).astype(np.uint8)
+            for _ in range(300)]
+    reads = []
+    for j, src in enumerate(rng.choice(200, 6, replace=False)):
+        for c in range(9):  # its family: 3 identical entries, 6 near ones
+            f = seqs[src].copy()
+            if c >= 3:
+                at = rng.random(len(f)) < 0.02
+                f[at] = rng.integers(0, 4, int(at.sum()))
+            seqs[200 + 9 * j + c] = f
+        read = hit_homolog(rng, seqs[src], 4, sub_rate=0.01, indel_rate=0.001)
+        reads.append(read[::-1] ^ 3 if j % 2 else read)  # ACGT codes: 3 - c complements
+
+    def run(device, traced):
+        ctx = SSAContext(device=device)
+        ctx.init_symbol_translation(SymType.NUCLEOTIDE, Strand.BOTH)
+        ctx.init_constant_scoring(2, -4)
+        ctx.init_gap_penalties(20, 2, first_residue_opens=True)
+        ctx.db = SequenceDB.from_sequences([f"e{i}" for i in range(len(seqs))], seqs,
+                                           SymType.NUCLEOTIDE)
+        qs = [ctx.init_sequence_fasta("".join("ACGT"[c] for c in r)) for r in reads]
+        with profile(activities=[ProfilerActivity.CPU]) if traced else contextlib.nullcontext():
+            lists = ctx.align_many(qs, k=10, mode=ComputeMode.ALIGNMENT,
+                                   align_type=AlignType.NW, bit_width=BitWidth.EXACT)
+        rows = [[(h.seq_id, h.score, h.strand, h.q_begin, h.q_end, h.s_begin, h.s_end,
+                  h.cigar) for h in hl] for hl in lists]
+        return rows, [s for hl in lists for s in hl.stats.spans]
+
+    hit_cuda.launches = interseq_cuda.launches = 0
+    t0 = time.perf_counter()
+    gpu, spans = run(dev, True)
+    t_gpu = time.perf_counter() - t0
+    hits, k1 = hit_cuda.launches, interseq_cuda.launches
+    cpu, _ = run("cpu", False)
+    if gpu != cpu:
+        fail(18, "both-strand NW align_many on cuda differs from the same call on cpu")
+    sweeps = [s.counts for s in spans if s.name == "search.reduced"]
+    if len(sweeps) != len(reads) or any(c["wide"] or c["local"] for c in sweeps):
+        fail(18, f"the strand sweeps were not NW on int32 lanes: {sweeps}")
+    if hits == 0 or k1 == 0:
+        fail(18, f"{hits} NW hit-kernel launches, {k1} K1 launches")
+    strands = "".join(rows[0][2] for rows in gpu)
+    say(f"phase 18 amplicon path: align_many of {len(reads)} reads, NW, both strands, "
+        f"ALIGNMENT, {len(seqs)} entries: equal to device='cpu' field by field "
+        f"(first strands {strands}, top scores {[rows[0][1] for rows in gpu]}); "
+        f"{k1} K1 launches, all int32 NW; {hits} NW hit-kernel launches; "
+        f"{t_gpu:.3f} s on the card, traced")
+
+
 def bound_ms(cells: int, cell: tuple[float, float], nbytes: int) -> tuple[float, str]:
     """The least time for ``cells`` DP cells of ``cell`` = (int32 adds, DPX)
     each, in ms, and what bounds it."""
@@ -2763,6 +2834,7 @@ def main() -> int:
     err2 = phase2(dev)
     launches, _, _, eng = phase34(dev)
     hit_launches = phase5()
+    phase18(dev)
     t_k1, t_plain = phase6(dev, eng)["kernel"]
     launches += phase14(dev, eng)
     del eng

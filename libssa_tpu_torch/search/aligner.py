@@ -143,9 +143,9 @@ def align_batch(
     non-empty are traced together: on a CUDA ``device`` by
     ``hit_cuda.hit_batch``, one upload, one launch and one fetch a run of
     ``hit_cuda.groups``, each in a ``traceback.batch`` span (counts
-    ``hits``, ``cells``, ``device``: the hits solved on the card) with its
-    fetch in ``device.wait``; elsewhere by ``align_pair`` hit by hit, in one
-    such span with ``device`` 0. Every other pair runs ``align_pair`` alone
+    ``hits``, ``cells``, ``device``: the hits solved on the card; ``local``:
+    1 for SW) with its fetch in ``device.wait``; elsewhere by ``align_pair``
+    hit by hit, in one such span with ``device`` 0. Every other pair runs ``align_pair`` alone
     in a ``traceback.fill`` span: the linear-space path and the empty
     sequences. ``stats`` (optional ``SearchStats``) also gets the card's
     launch-to-fetch seconds (``aligner_device_seconds``).
@@ -169,7 +169,8 @@ def align_batch(
                              stats)
     else:
         cells = sum(len(pairs[k][0]) * len(pairs[k][1]) for k in batch)
-        with span(stats, "traceback.batch", hits=len(batch), cells=cells, device=0):
+        with span(stats, "traceback.batch", hits=len(batch), cells=cells, device=0,
+                  local=int(local)):
             tbs = [align_pair(*pairs[k], sub, gap_open, gap_extend, local,
                               first_residue_opens) for k in batch]
     for k, tb in zip(batch, tbs):
@@ -189,7 +190,8 @@ def _trace_on_card(pairs, sub, Q, R, local, dev, stats) -> list[Traceback]:
     for lo, hi in hit_cuda.groups(hits):
         part = hits[lo:hi]
         cells = int((part[:, 1] * part[:, 3]).sum())
-        with span(stats, "traceback.batch", hits=hi - lo, cells=cells, device=hi - lo):
+        with span(stats, "traceback.batch", hits=hi - lo, cells=cells, device=hi - lo,
+                  local=int(local)):
             t0 = time.perf_counter()
             res = hit_cuda.hit_batch(codes, part, sub, Q, R, local, dev)
             with span(stats, "device.wait"):

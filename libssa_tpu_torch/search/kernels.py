@@ -55,7 +55,8 @@ class TopK(NamedTuple):
 class Reduced(NamedTuple):
     """``reduced``: the top ``k'`` records (rows past the valid candidates
     carry INVALID records), each with its best entry and that entry's first
-    best frame; the exactness and narrow-window counts as in ``TopK``."""
+    best frame; the exactness and narrow-window counts as in ``TopK``;
+    whether any launch computed in int64 (``wide``)."""
 
     scores: np.ndarray
     records: np.ndarray
@@ -63,6 +64,7 @@ class Reduced(NamedTuple):
     frames: np.ndarray
     overflow: bool
     n_flagged: int
+    wide: bool
 
 
 class Ladder(NamedTuple):
@@ -318,6 +320,7 @@ class Sweeps:
         n_frames = profiles.shape[0]
         mrs = self._m_real_index(m_reals, profiles)
         parts = []
+        wide = False
         any_f = torch.zeros((), dtype=torch.bool, device=dev)
         n_flagged = torch.zeros((), dtype=torch.int64, device=dev)
         # A frame's tie rank in the low 3 bits of its score key, the first
@@ -332,6 +335,7 @@ class Sweeps:
             iq_d, ic_d = index[at : at + P], index[at + P : at + 2 * P]
             at += 2 * P
             s, hi, lo = self._run(profiles, codes, lens, iq_d, ic_d, mrs)  # (F*C, B)
+            wide |= hi.dtype == torch.int64  # the kernel's own type
             nC = s.shape[0] // n_frames
             B = s.shape[1]
             ids_rows = ids[ic_d[:nC].long()]  # (C, B) entry ids, -1 padding
@@ -377,4 +381,4 @@ class Sweeps:
             s2[o2].long(), r2[o2].long(), e1[o2].long(), f1[o2].long(),
             any_f.long().reshape(1), n_flagged.long().reshape(1),
         ]))
-        return Reduced(*out[:-2].reshape(4, kk), bool(out[-2]), int(out[-1]))
+        return Reduced(*out[:-2].reshape(4, kk), bool(out[-2]), int(out[-1]), wide)

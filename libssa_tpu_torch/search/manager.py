@@ -574,7 +574,9 @@ class SearchEngine:
         the reference's tie-breaks, or ``None`` when a lane left the f32
         window (the caller then takes the exact host path). A narrow
         ``bit_width`` records entries that left the window in any frame as
-        ``stats.rescored``.
+        ``stats.rescored``. Its ``search.reduced`` span counts ``frames``,
+        ``rows``, ``local`` (1 for SW) and ``wide`` (1 where K1 computed in
+        int64).
         """
         p = self.params
         stats = stats if stats is not None else SearchStats()
@@ -590,7 +592,7 @@ class SearchEngine:
         t0 = time.perf_counter()
         nf = len(frames)
         mq = max(profile_rows(len(f)) for f in frames)
-        with span(stats, "search.reduced", frames=nf, rows=mq):
+        with span(stats, "search.reduced", frames=nf, rows=mq, local=int(local)) as rec:
             prof_stack = self._profiles(frames, rows=mq)
             m_reals = [len(f) for f in frames]
             group_dev = None if group_of is None else torch.as_tensor(
@@ -602,6 +604,8 @@ class SearchEngine:
             red = sweeps.reduced(
                 prof_stack, kernels.pairs(dev_stacks, nf), m_reals, group_dev, k, stats
             )
+            if rec is not None:
+                rec.counts["wide"] = int(red.wide)
             for f in frames:
                 stats.cells += len(f) * self.db.total_residues
             stats.subjects += len(self.db)

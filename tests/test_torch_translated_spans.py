@@ -82,7 +82,7 @@ def test_a_translated_search_records_the_frame_spans(ctx):
         assert spans[t].parent == 0 and spans[r].parent == 0
         assert spans[t].counts == {"frames": 6}
         m = len(read_.raw) // 3
-        assert spans[r].counts == {"frames": 6, "rows": -(-m // 32) * 32}
+        assert spans[r].counts == {"frames": 6, "rows": -(-m // 32) * 32, "local": 1, "wide": 0}
         # one upload of every stack group's indexes, and the fetch
         assert len(ctx._get_engine()._stacks_on_device(ctx.db, 16)[1]) > 2
         assert len(by["device.wait"]) == 2
