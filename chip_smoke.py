@@ -8,7 +8,7 @@ Drives the port's main path — database search through ``SearchEngine`` and
 
 1. build K1 (``libssa_tpu_torch/csrc/interseq.cu``) with nvcc, and beside
    it K3, K2, the leaf kernel (``csrc/leafbatch.cu``), the hit kernel
-   (``csrc/hitbatch.cu``), the probes
+   (``csrc/hitbatch.cu``), the level kernels (``csrc/mmlevel.cu``), the probes
    (``csrc/probes.cu``, ``csrc/lp_rowsweep.cu``), K3's stage-cut builds and
    the parts of ``csrc/interseq_variants.cu``, one nvcc each, all in
    parallel; K1's registers, local bytes and blocks an SM for each
@@ -139,7 +139,12 @@ Drives the port's main path — database search through ``SearchEngine`` and
     ``LEAF_CELLS``, one of two rows, a batch of one leaf), int32 and int64;
     then ``mito_align``'s pair, its ops string with the leaves on the card
     equal to the one with them on the host, and the kernel's time at that
-    pair's leaf batch beside the plain version's and its bound;
+    pair's leaf batch beside the plain version's and its bound; (h) the
+    level kernels (``csrc/mmlevel.cu``: K2's boundaries, a node's t1/t2
+    first minima) against their plain versions at every divide level of
+    ``mito_align``'s pair and the widest of ``viral_align``'s, two launches
+    a level, each timed beside the plain version and the PyTorch ops on the
+    card that they replace;
 17. the hit kernel (``csrc/hitbatch.cu``, a call's top-k tracebacks in one
     launch) against its plain version (``aligner.align_pair`` hit by hit):
     drawn batches of 1-25 hits up to 600 x 600 (stripe and chunk edges
@@ -188,6 +193,7 @@ K3_SOURCE = "libssa_tpu_torch/csrc/longpair.cu"
 K2_REPLACES = "libssa_tpu/ops/ring_block_pallas.py:68"
 K2_SOURCE = "libssa_tpu_torch/csrc/ring_block.cu"
 LEAF_SOURCE = "libssa_tpu_torch/csrc/leafbatch.cu"
+LEVEL_SOURCE = "libssa_tpu_torch/csrc/mmlevel.cu"
 HIT_SOURCE = "libssa_tpu_torch/csrc/hitbatch.cu"
 PROBES_SOURCE = "libssa_tpu_torch/csrc/probes.cu"
 ROWSWEEP_SOURCE = "libssa_tpu_torch/csrc/lp_rowsweep.cu"
@@ -643,7 +649,7 @@ def build_kernels():
     import functools
 
     from libssa_tpu_torch.ops import (
-        hit_cuda, interseq_cuda, leaf_cuda, longpair_cuda, ring_block_cuda)
+        hit_cuda, interseq_cuda, leaf_cuda, longpair_cuda, mm_level_cuda, ring_block_cuda)
 
     t0 = time.perf_counter()
 
@@ -659,17 +665,19 @@ def build_kernels():
     parts = [functools.partial(_interseq_variants.lib, p)
              for p in range(_interseq_variants.PARTS)]
     libs = (interseq_cuda._lib, longpair_cuda._lib, ring_block_cuda._lib, leaf_cuda._lib,
-            hit_cuda._lib, functools.partial(_common.lib, "chain"),
+            hit_cuda._lib, mm_level_cuda._lib, functools.partial(_common.lib, "chain"),
             functools.partial(_common.lib, "tile"), r3_lp_bisect._lib, *parts, *cuts)
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
-        t_k1, t_k3, t_k2, t_leaf, t_hit, t_chain, t_tile, t_rs, *t_rest = pool.map(build, libs)
+        t_k1, t_k3, t_k2, t_leaf, t_hit, t_level, t_chain, t_tile, t_rs, *t_rest = \
+            pool.map(build, libs)
     t_parts, t_cuts = t_rest[:len(parts)], t_rest[len(parts):]
     say(f"phase 1 build K1 ({K1_SOURCE}), K3 ({K3_SOURCE}), K2 ({K2_SOURCE}), the leaf "
-        f"kernel ({LEAF_SOURCE}), the hit kernel ({HIT_SOURCE}), the probes "
+        f"kernel ({LEAF_SOURCE}), the hit kernel ({HIT_SOURCE}), the level kernels "
+        f"({LEVEL_SOURCE}), the probes "
         f"({PROBES_SOURCE} in two builds, {ROWSWEEP_SOURCE}), K3's {len(cuts)} stage-cut "
         f"builds and K1's variants ({VARIANTS_SOURCE} in {len(parts)} parts), nvcc sm_90a "
         f"in parallel: ok, K1 {t_k1:.1f} s, K3 {t_k3:.1f} s, K2 {t_k2:.1f} s, leaf kernel "
-        f"{t_leaf:.1f} s, hit kernel {t_hit:.1f} s, probes "
+        f"{t_leaf:.1f} s, hit kernel {t_hit:.1f} s, level kernels {t_level:.1f} s, probes "
         f"{t_chain:.1f} s (chain) and {t_tile:.1f} s (tile), row sweep {t_rs:.1f} s, stage "
         f"cuts {max(t_cuts):.1f} s, K1 variants "
         + " ".join(f"{t:.1f}" for t in t_parts) + " s")
@@ -2177,12 +2185,12 @@ def phase16a(dev) -> int:
 def draw_edges(rng, q, s, hi, mat, Q, R, local, dt, kind):
     """A tile's boundaries (leftH, leftE, topH, topF), CPU tensors, as K2's
     callers make them: SW's zeros or NW's open edges
-    (``mm_device.open_edge``) ("open"), or the edges carried out of a tile
+    (``mm_level_cuda.open_edge``) ("open"), or the edges carried out of a tile
     to its left and one above it, each run by the plain version from open
     edges ("carried"); their codes are drawn below ``hi``."""
     import torch
 
-    from libssa_tpu_torch.ops.mm_device import open_edge
+    from libssa_tpu_torch.ops.mm_level_cuda import open_edge
     from libssa_tpu_torch.ops.ring_block import ring_block_plain
 
     rows, cols = len(q), len(s)
@@ -2551,6 +2559,106 @@ def phase16g(dev) -> dict:
             "library_ms": None}
 
 
+def phase16h(dev) -> dict:
+    """The level kernels (``csrc/mmlevel.cu``: the prologue that writes K2's
+    boundaries, the split that combines a node's rows and takes their first
+    minima) on the card against their plain versions at every divide level
+    of mito_align's pair and at the widest level of viral_align's (the
+    benchmark's generator, traffic files and configuration), from the same
+    K2 outputs; then each timed by CUDA events at those levels, beside the
+    plain version on the CPU and the same PyTorch ops on the card (the path
+    the kernels replace, its blocking uploads included). Returns the kernels
+    line's entry."""
+    import torch
+
+    from libssa_tpu_torch.ops import mm_level_cuda, ring_block_cuda
+    from libssa_tpu_torch.ops.mm_device import DevicePair
+    from ssabench.mixes.pair import Mix
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ssabench")
+
+    def spec(kind, name):
+        with open(os.path.join(root, kind, f"{name}.json")) as fh:
+            return json.load(fh)
+
+    def levels_of(traffic, seed):
+        mix = Mix(spec("configs", "dna_pair_ednafull"), spec("traffic", traffic), seed,
+                  dev.type)
+        seen, ends = [], []
+        divide, sw_end = DevicePair.divide_level, DevicePair.sw_end
+
+        def recorded(self, nodes):
+            seen.append((self, list(nodes)))
+            return divide(self, nodes)
+
+        def counted(self, *args, **kw):
+            ends.append(args)
+            return sw_end(self, *args, **kw)
+
+        DevicePair.divide_level, DevicePair.sw_end = recorded, counted
+        before = mm_level_cuda.launches
+        try:
+            mix._run()
+        finally:
+            DevicePair.divide_level, DevicePair.sw_end = divide, sw_end
+        launches = mm_level_cuda.launches - before
+        if launches != 2 * len(seen) + len(ends):  # a prologue an SW end-cell pass
+            fail(16, f"16h {traffic}: {launches} level-kernel launches for {len(seen)} levels "
+                     f"and {len(ends)} SW end-cell passes, not two a level and one a pass")
+        return seen, launches
+
+    mito, launches = levels_of("mito_align", 2**31 + 16569)
+    viral, more = levels_of("viral_align", 2**31 + 162114)
+    cases = [(f"mito_align level {i + 1}", x) for i, x in enumerate(mito)]
+    cases.append(("viral_align widest level", max(viral, key=lambda x: len(x[1]))))
+    totals = {"kernels": 0.0, "plain": 0.0, "aten": 0.0, "bytes": 0}
+    for name, (pair, nodes) in cases:
+        jobs, tbs = pair.level_jobs(nodes)
+        level = mm_level_cuda.stage(jobs, tbs, dev)
+        Q, R, g, dt = pair.Q, pair.R, pair.Q - pair.R, pair.dtype
+        t_pro, got = cuda_ms(lambda: mm_level_cuda.prologue(level, dt, Q, R, False), reps=5)
+        t0 = time.perf_counter()
+        want = mm_level_cuda.prologue_plain(level.table, dt, Q, R, False)
+        t_plain = time.perf_counter() - t0
+        if any(not torch.equal(a.cpu(), b) for a, b in zip(got, want)):
+            fail(16, f"16h {name}: the prologue differs from its plain version")
+        out = ring_block_cuda.ring_block_cuda(pair.q, pair.s, jobs, pair.matrix, Q, R, False,
+                                              *got, codes_checked=True)
+        t_split, res = cuda_ms(lambda: mm_level_cuda.split(level, out.botH, out.botF, g, R),
+                               reps=5)
+        hH, hF = out.botH.cpu(), out.botF.cpu()
+        t0 = time.perf_counter()
+        plain = mm_level_cuda.split_plain(level.table, hH, hF, g, R)
+        t_plain += time.perf_counter() - t0
+        if not torch.equal(res.cpu(), plain):
+            fail(16, f"16h {name}: the split differs from its plain version")
+        t_aten, _ = cuda_ms(lambda: (
+            mm_level_cuda.prologue_plain(level.table, dt, Q, R, False, dev),
+            mm_level_cuda.split_plain(level.table, out.botH, out.botF, g, R)), reps=5)
+        item = out.botH.element_size()
+        n_rows, n_cols = int(jobs[:, 1].sum()), int(jobs[:, 3].sum())
+        nbytes = item * (2 * n_rows + len(jobs) + 2 * n_cols) + item * 2 * n_cols + 32 * len(nodes)
+        if name.startswith("mito"):
+            totals["kernels"] += t_pro + t_split
+            totals["plain"] += 1e3 * t_plain
+            totals["aten"] += t_aten
+            totals["bytes"] += nbytes
+        say(f"phase 16h {name}: {len(nodes)} nodes, {n_cols // 2} columns a pass, "
+            f"{'int64' if item == 8 else 'int32'}: prologue {t_pro:.4f} ms, split "
+            f"{t_split:.4f} ms (events, min of 5), equal to the plain version ({1e3 * t_plain:.1f} "
+            f"ms on the CPU); the PyTorch ops on the card {t_aten:.3f} ms; bound "
+            f"{1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms ({nbytes} bytes)")
+    b = 1e3 * totals["bytes"] / HBM_BYTES_PER_S
+    say(f"phase 16h mito_align's {len(mito)} levels: kernels {totals['kernels']:.4f} ms, the "
+        f"PyTorch ops on the card {totals['aten']:.3f} ms, plain version {totals['plain']:.1f} "
+        f"ms, bound {b:.4f} ms, {card_line()}")
+    return {"name": "level kernels (a Myers-Miller level's K2 boundaries and split)",
+            "route": "cuda", "source": LEVEL_SOURCE, "replaces": None,
+            "launches": launches + more, "max_abs_err": 0, "ms": totals["kernels"],
+            "plain_ms": totals["plain"], "bound_ms": b, "bound_by": "bytes",
+            "library_ms": None}
+
+
 WALKTHROUGHS = {  # (f): each example and lines its output must hold
     "examples/torch_database_search.py": (
         "=== SW protein search", "=== NW global search", "=== Nucleotide search",
@@ -2578,9 +2686,10 @@ def phase16f() -> list[str]:
 
 
 def phase16(dev):
-    """K1, K2, K3 and the leaf kernel over drawn inputs, the API end to end
-    and the walkthroughs, each part's draws and seconds on a line of its
-    own; returns the leaf kernel's entry of the kernels line."""
+    """K1, K2, K3 and the leaf kernel over drawn inputs, the API end to end,
+    the walkthroughs and the level kernels at the benchmark's levels, each
+    part's draws and seconds on a line of its own; returns the leaf and
+    level kernels' entries of the kernels line."""
     t_phase = time.perf_counter()
 
     def part(name, fn, what):
@@ -2605,8 +2714,11 @@ def phase16(dev):
     part("g", lambda: leaf.update(phase16g(dev)), lambda _: f"leaf kernel vs its plain "
          f"version: {DRAWS['g']} draws (seed {DRAW_SEED + 7}) of 1-66 leaves, int32 and "
          f"int64, equal")
+    level = {}
+    part("h", lambda: level.update(phase16h(dev)), lambda _: "level kernels vs their plain "
+         "versions at mito_align's levels and viral_align's widest, equal")
     say(f"phase 16 drawn inputs: no difference; phase {time.perf_counter() - t_phase:.1f} s")
-    return leaf
+    return leaf, level
 
 
 HIT_DRAWS = 40  # phase 17: drawn batches
@@ -2846,7 +2958,7 @@ def main() -> int:
     k2_launches = phase11(dev) + ring_launches
     probe_entries = phase12(dev)
     variant_entries = phase13(dev)
-    leaf_entry = phase16(dev)  # after every count of the main path is read
+    leaf_entry, level_entry = phase16(dev)  # after every count of the main path is read
     hit_entry = phase17(dev, hit_launches)
 
     # bound_ms at each timed shape: K1 at bench.py's kernel shape (subject
@@ -2890,7 +3002,7 @@ def main() -> int:
         "bound_ms": b_k2[0],
         "bound_by": b_k2[1],
         "library_ms": None,
-    }, leaf_entry, hit_entry, *probe_entries, *variant_entries]}))
+    }, leaf_entry, level_entry, hit_entry, *probe_entries, *variant_entries]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

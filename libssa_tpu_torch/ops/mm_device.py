@@ -19,11 +19,13 @@ and their earliest columns.
 ``DevicePair`` uploads the pair once per alignment: the query and subject
 codes, forward and reversed, and the matrix. Every pass is then a window
 into them. One recursion level runs as ONE K2 launch over the forward and
-reverse pass of every node; the boundary arrays are built with tensor
-ops on the device, t1/t2 are combined in int64 (a sum of two rows can pass
-the int32 bound when each row does not) and arg-minned there too (the
-first minimum, as ``np.argmin``), and the host fetches 4 integers a node.
-The leaves of a frontier pass are one launch of the leaf kernel
+reverse pass of every node, staged by ``ops/mm_level_cuda.py``: the
+level's tile table goes up in one copy, a prologue kernel writes K2's
+boundaries from it, K2 runs, and a split kernel combines t1/t2 in int64
+(a sum of two rows can pass the int32 bound when each row does not) and
+takes their first minima (as ``np.argmin``); the host fetches 4 integers
+a node in one copy. Nothing else of a level waits for the device. The
+leaves of a frontier pass are one launch of the leaf kernel
 (``solve_leaves``, ``ops/leaf_cuda.py``) and one fetch of their ops.
 
 Boundary mapping (min-cost -> score form): substitution = the matrix,
@@ -43,42 +45,9 @@ import numpy as np
 import torch
 
 from ..util.profiling import span
-from . import leaf_cuda, ring_block, ring_block_cuda
+from . import leaf_cuda, mm_level_cuda, ring_block_cuda
 from .interseq import INT32_LIMIT
 from .longpair import score_bound
-
-INF64 = 2**62
-
-
-def open_edge(opens, k: torch.Tensor, R: int) -> torch.Tensor:
-    """H along an NW DP's first column or first row, at index ``k``: 0 at
-    k = 0, else -(opens + R k). The left column H[i][0] opens at ``tb``
-    (k = i), the top row H[0][j] at Q - R (k = j)."""
-    return torch.where(k == 0, 0, -(opens + R * k))
-
-
-def _segments(lengths: np.ndarray, dev) -> tuple[torch.Tensor, torch.Tensor]:
-    """(segment id, index within the segment) of every element of a flat
-    array of segments with ``lengths``, built on ``dev``."""
-    counts = torch.as_tensor(lengths, dtype=torch.int64).to(dev)
-    total = int(lengths.sum())
-    seg = torch.repeat_interleave(
-        torch.arange(len(lengths), device=dev), counts, output_size=total
-    )
-    starts = torch.cumsum(counts, 0) - counts
-    return seg, torch.arange(total, device=dev) - starts[seg]
-
-
-def _seg_argmin(t: torch.Tensor, seg: torch.Tensor, j: torch.Tensor, k: int):
-    """(first index, minimum) of each of ``k`` segments of ``t``."""
-    dev = t.device
-    v = torch.full((k,), INF64, dtype=torch.int64, device=dev).scatter_reduce(
-        0, seg, t, "amin")
-    at = torch.where(t == v[seg], j, INF64)
-    first = torch.full((k,), INF64, dtype=torch.int64, device=dev).scatter_reduce(
-        0, seg, at, "amin")
-    return first, v
-
 
 class DevicePair:
     """One (query, subject) pair resident on a device, for its traceback.
@@ -91,13 +60,12 @@ class DevicePair:
     JAX package).
 
     Counters: ``dispatches`` (K2 launches, each followed by one fetch),
-    ``levels`` (``divide_level`` calls), ``leaf_launches`` (``solve_leaves``
-    calls: one leaf-kernel launch and one fetch each) and ``seconds`` (wall
-    time of those calls, the fetch's wait for the device included).
-    ``stats``, the request's ``SearchStats`` where given, gets a
-    ``device.wait`` span
-    around each fetch, and around the first upload after a launch (a
-    blocking copy from host memory waits for the work queued before it).
+    ``levels`` (``divide_level`` calls), ``staged_levels`` (those that ran
+    through ``mm_level_cuda``'s kernels: on a card), ``leaf_launches``
+    (``solve_leaves`` calls: one leaf-kernel launch and one fetch each) and
+    ``seconds`` (wall time of those calls, the fetch's wait for the device
+    included). ``stats``, the request's ``SearchStats`` where given, gets a
+    ``device.wait`` span around each fetch.
     """
 
     def __init__(self, q_codes, s_codes, matrix_padded, gap_q, gap_r, device="cuda",
@@ -121,6 +89,7 @@ class DevicePair:
         self.stats = stats
         self.dispatches = 0
         self.levels = 0
+        self.staged_levels = 0
         self.leaf_launches = 0
         self.seconds = 0.0
 
@@ -132,30 +101,23 @@ class DevicePair:
     def bounds(self, jobs: np.ndarray, tbs: np.ndarray | None):
         """K2's flat (leftH, leftE, topH, topF) for ``jobs``: NW tiles whose
         left boundary opens a vertical gap at ``tbs``, or SW tiles with zero
-        boundaries (``tbs`` None)."""
-        dev, dt, Q, R = self.device, self.dtype, self.Q, self.R
-        rows, cols = jobs[:, 1], jobs[:, 3]
-        seg, i = _segments(rows + 1, dev)  # leftH: rows 0 .. rows
-        eseg, ie = _segments(rows, dev)  # leftE: rows 1 .. rows
-        _, j = _segments(cols, dev)
-        if tbs is None:
-            leftH = torch.zeros(len(i), dtype=dt, device=dev)
-            leftE = torch.zeros(len(ie), dtype=dt, device=dev)
-            topH = torch.zeros(len(j), dtype=dt, device=dev)
-        else:
-            tb = torch.as_tensor(tbs, dtype=torch.int64).to(dev)
-            leftH = open_edge(tb[seg], i, R).to(dt)  # H[i][0]
-            leftE = open_edge(tb[eseg], ie + 1, R).to(dt)
-            topH = open_edge(Q - R, j + 1, R).to(dt)  # H[0][j+1]
-        leftE = leftE - Q + R  # no gap state on either boundary
-        return leftH, leftE, topH, topH - Q + R
+        boundaries (``tbs`` None); the prologue kernel on a card (kept for
+        ``experiments/k2_ab.py``, which times K2 alone across checkouts)."""
+        level = mm_level_cuda.stage(jobs, tbs, self.device)
+        return mm_level_cuda.prologue(level, self.dtype, self.Q, self.R, tbs is None)
 
     def _run(self, jobs: np.ndarray, tbs: np.ndarray | None):
-        """One K2 launch over ``jobs`` (``bounds`` has ``tbs``)."""
-        return ring_block_cuda.ring_block_cuda(
+        """One K2 launch over ``jobs``: NW tiles whose left boundary opens a
+        vertical gap at ``tbs``, or SW tiles with zero boundaries (``tbs``
+        None), the boundaries written by the prologue from one upload of the
+        tile table. Returns K2's outputs and the staged table."""
+        level = mm_level_cuda.stage(jobs, tbs, self.device)
+        out = ring_block_cuda.ring_block_cuda(
             self.q, self.s, jobs, self.matrix, self.Q, self.R, tbs is None,
-            *self.bounds(jobs, tbs), codes_checked=True,
+            *mm_level_cuda.prologue(level, self.dtype, self.Q, self.R, tbs is None),
+            codes_checked=True,
         )
+        return out, level
 
     def level_jobs(self, nodes):
         """K2's jobs and left-boundary opens for one level: per node, the
@@ -173,7 +135,9 @@ class DevicePair:
         return jobs, tbs.reshape(-1)
 
     def divide_level(self, nodes):
-        """All divide passes of one recursion LEVEL in one K2 launch.
+        """All divide passes of one recursion LEVEL in one K2 launch, between
+        the prologue and the split kernel (on a card; their plain versions
+        on the CPU), with one fetch.
 
         ``nodes``: ``[(qs, qe, ss, se, tbf_is_zero, tbr_is_zero)]`` in
         absolute pair coordinates, qe - qs >= 2 and se > ss. Returns
@@ -181,35 +145,13 @@ class DevicePair:
         ``hirschberg._nw_ops`` splits on.
         """
         t0 = time.perf_counter()
-        dev, g, R = self.device, self.Q - self.R, self.R
-        jobs, tbs = self.level_jobs(nodes)
-        mid, nn, mr = jobs[0::2, 1], jobs[0::2, 3], jobs[1::2, 1]
-        tbf, tbr = tbs[0::2], tbs[1::2]
-        k = len(nodes)
-        out = self._run(jobs, tbs)
-        botH, botF = out.botH.long(), out.botF.long()
-
-        # t1[j] = CCf[j] + CCr[nn - j], t2[j] = DDf[j] + DDr[nn - j] - g,
-        # j = 0 .. nn, with CC[0] = DD[0] = tb + R * rows (column 0).
-        cstart = torch.as_tensor(ring_block.offsets(jobs)["cols"])
-        with span(self.stats, "device.wait"):  # a blocking upload waits for K2
-            cstart = cstart.to(dev)
-        seg, j = _segments(nn + 1, dev)
-        nn_d = torch.as_tensor(nn).to(dev)[seg]
-        c0f = torch.as_tensor(tbf + R * mid).to(dev)[seg]
-        c0r = torch.as_tensor(tbr + R * mr).to(dev)[seg]
-        fi = (cstart[0::2][seg] + j - 1).clamp(min=0)
-        ri = (cstart[1::2][seg] + nn_d - j - 1).clamp(min=0)
-        at0, atn = j == 0, j == nn_d
-        t1 = torch.where(at0, c0f, -botH[fi]) + torch.where(atn, c0r, -botH[ri])
-        t2 = torch.where(at0, c0f, -botF[fi]) + torch.where(atn, c0r, -botF[ri]) - g
-        j1, v1 = _seg_argmin(t1, seg, j, k)
-        j2, v2 = _seg_argmin(t2, seg, j, k)
-        res = torch.stack([j1, j2, v1, v2], 1)
+        out, level = self._run(*self.level_jobs(nodes))
+        res = mm_level_cuda.split(level, out.botH, out.botF, self.Q - self.R, self.R)
         with span(self.stats, "device.wait"):
-            res = res.cpu().tolist()  # the one fetch
+            res = mm_level_cuda.fetch(res)  # the one fetch
         self.dispatches += 1
         self.levels += 1
+        self.staged_levels += int(self.device.type == "cuda")
         self.seconds += time.perf_counter() - t0
         return [tuple(r) for r in res]
 
@@ -238,8 +180,8 @@ class DevicePair:
         (reversed codes when ``reverse``)."""
         t0 = time.perf_counter()
         tb = 0 if tb_is_zero else self.Q - self.R
-        out = self._run(np.array([self._jobs(q_off, m, s_off, n, reverse)], np.int64),
-                        np.array([tb]))
+        out, _ = self._run(np.array([self._jobs(q_off, m, s_off, n, reverse)], np.int64),
+                           np.array([tb]))
         c0 = tb + self.R * m
         with span(self.stats, "device.wait"):
             CC = np.concatenate([[c0], -out.botH.long().cpu().numpy()])
@@ -253,7 +195,8 @@ class DevicePair:
         oracle tie-break (smallest i, then smallest j); (0, 0, 0) when no
         cell scores above 0."""
         t0 = time.perf_counter()
-        out = self._run(np.array([self._jobs(q_off, m, s_off, n, reverse)], np.int64), None)
+        out, _ = self._run(np.array([self._jobs(q_off, m, s_off, n, reverse)], np.int64),
+                           None)
         best = out.rowmax.max()
         rows = torch.arange(m, device=self.device)
         i = torch.where(out.rowmax == best, rows, m).min().view(1)  # the first row reaching it

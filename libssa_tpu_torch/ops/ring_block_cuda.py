@@ -5,7 +5,8 @@ contract and the layout) with one K2 launch (``csrc/ring_block.cu``). On
 CPU tensors it runs the plain PyTorch version
 (``ring_block.ring_block_batch_plain``) tile by tile; on CUDA tensors it
 launches K2 or raises. Nothing falls back. ``stage`` splits a launch into
-its host staging and the launch itself.
+its host staging and the launch itself; ``to_device`` is its upload, one
+copy from pinned host memory that does not wait for the device.
 """
 from __future__ import annotations
 
@@ -204,15 +205,25 @@ def _check_tiles(q_codes, s_codes, jobs, leftH, leftE, topH, topF) -> np.ndarray
     return jobs
 
 
+def to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """``arr`` on ``dev``: on a card one copy from pinned host memory that
+    does not wait for the device (the caching host allocator keeps the
+    pinned block until the copy is done); on the CPU ``arr`` itself."""
+    host = torch.from_numpy(np.ascontiguousarray(arr))
+    if dev.type == "cpu":
+        return host
+    return host.pin_memory().to(dev, non_blocking=True)
+
+
 def stage(q_codes, s_codes, jobs, matrix_padded, Q, R, local, leftH, leftE, topH, topF,
           rows_per_thread=None, codes_checked=False, warps=None,
           defines=()) -> Callable[[], ring_block.Tiles]:
     """One K2 launch made ready on CUDA tensors (``ring_block_cuda``'s
-    arguments): the job table and ticket map copied to the device, the
-    outputs and the stripe-edge scratch allocated. Returns the launch:
-    each call resets the tickets, launches K2 once on the current stream
-    and returns the same output tensors. Timing the launch alone times
-    K2 without the host's staging. ``defines`` builds a timing probe's
+    arguments): the job table and ticket map copied to the device in one
+    ``to_device`` copy, the outputs and the stripe-edge scratch allocated.
+    Returns the launch: each call resets the tickets, launches K2 once on
+    the current stream and returns the same output tensors. Timing the
+    launch alone times K2 without the host's staging. ``defines`` builds a timing probe's
     stage cuts in (``_lib``)."""
     jobs = _check_tiles(q_codes, s_codes, jobs, leftH, leftE, topH, topF)
     dev, dt = s_codes.device, leftH.dtype
@@ -256,8 +267,10 @@ def stage(q_codes, s_codes, jobs, matrix_padded, Q, R, local, leftH, leftE, topH
                                  s_codes.data_ptr(), addr, leftH.element_size(), ring)
     if len(group_job) >= 2**31:
         raise ValueError("too many stripes for one K2 launch")
-    table_d = torch.from_numpy(table).to(dev)
-    group_job_d = torch.from_numpy(group_job).to(dev)
+    staged = to_device(np.concatenate([table.view(np.uint8).ravel(), group_job.view(np.uint8)]),
+                       dev)  # the job table, then the ticket map: one copy
+    table_d, group_job_d = staged[:table.nbytes].view(torch.int64), \
+        staged[table.nbytes:].view(torch.int32)
     counters = torch.empty(len(group_job) + 1, dtype=torch.int32, device=dev)  # ticket, progress
 
     def launch() -> ring_block.Tiles:

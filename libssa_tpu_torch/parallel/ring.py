@@ -20,7 +20,7 @@ passes its left edge on unchanged.
 Boundaries, built with tensor ops on the shard's device:
 
 * shard 0's left column and row block 0's top row are the DP's own
-  (``mm_device.open_edge`` for NW, zeros for SW), with no gap state
+  (``mm_level_cuda.open_edge`` for NW, zeros for SW), with no gap state
   (E = H - Q + R, F = H - Q + R, ``ops/ring_block.py``);
 * a shard's bottom H/F row is its next row block's top;
 * its right-edge H/E column is shard d + 1's left edge one phase later;
@@ -56,7 +56,8 @@ import torch
 import torch.distributed as dist
 
 from ..ops import ring_block_cuda
-from ..ops.mm_device import DevicePair, open_edge
+from ..ops.mm_device import DevicePair
+from ..ops.mm_level_cuda import open_edge
 
 RB_DEFAULT = 1 << 17
 BIG = 2**62  # above every row and column index

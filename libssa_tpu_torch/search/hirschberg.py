@@ -286,7 +286,9 @@ def _nw_ops(q, s, cost, g, h, tb, te, dev=None, q0=0, s0=0, stats=None):
     rectangle's offset in the full pair (``dev`` windows are absolute).
     Levels below DEVICE_MIN_CELLS run the host NumPy passes instead —
     cheaper than a round trip. ``stats``: the request's ``SearchStats``,
-    which gets an ``mm.level`` span for each level's divide passes and an
+    which gets an ``mm.level`` span for each level's divide passes (its
+    count ``staged`` is 1 where the level ran through
+    ``ops/mm_level_cuda.py``'s kernels on a card, else 0) and an
     ``mm.leaves`` span for each pass's leaves.
     """
     items = [_Node(0, len(q), 0, len(s), tb, te)]
@@ -330,8 +332,9 @@ def _nw_ops(q, s, cost, g, h, tb, te, dev=None, q0=0, s0=0, stats=None):
             cells = sum((nd.qe - nd.qs) * (nd.se - nd.ss) for _, nd in requests)
             on_device = dev is not None and cells >= DEVICE_MIN_CELLS
             with span(stats, "mm.level", nodes=len(requests), cells=cells,
-                      device=on_device):
+                      device=on_device, staged=0) as level:
                 if on_device:
+                    staged = dev.staged_levels
                     splits = dev.divide_level(
                         [
                             (q0 + nd.qs, q0 + nd.qe, s0 + nd.ss, s0 + nd.se,
@@ -339,6 +342,8 @@ def _nw_ops(q, s, cost, g, h, tb, te, dev=None, q0=0, s0=0, stats=None):
                             for _, nd in requests
                         ]
                     )
+                    if level is not None:  # 1: the level's kernels ran on the card
+                        level.counts["staged"] = dev.staged_levels - staged
                 else:
                     splits = []
                     for _, nd in requests:

@@ -1,5 +1,5 @@
-"""K1, K3, K2, the search engine, the linear-space traceback, the leaf and
-hit kernels, the probes' kernels and K1's variants on an NVIDIA GPU,
+"""K1, K3, K2, the search engine, the linear-space traceback, the level,
+leaf and hit kernels, the probes' kernels and K1's variants on an NVIDIA GPU,
 against the plain version and the CPU.
 
 Every test here needs a card: it is marked ``cuda`` and skips without one.
@@ -28,6 +28,7 @@ from libssa_tpu_torch.ops import (
     interseq_cuda,
     leaf_cuda,
     longpair,
+    mm_level_cuda,
     longpair_cuda,
     ring_block,
     ring_block_cuda,
@@ -547,6 +548,115 @@ def test_mito_shape_leaves_on_card_equal_host(dev, monkeypatch):
     before = leaf_cuda.launches
     want = hirschberg.align_pair_linear(q, s, sub, 20, 1, **kw)
     assert leaf_cuda.launches == before
+    assert (got.score, got.cigar) == (want.score, want.cigar)
+
+
+def _homolog_pair(seed, m, n, sub_rate=0.09, del_rate=0.002):
+    """ACGT codes of m and a homolog of n, as ``test_mito_shape_leaves_on_card_equal_host``
+    draws them."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 4, m).astype(np.uint8)
+    keep = rng.random(m) >= del_rate
+    s = np.where(rng.random(m) < sub_rate, rng.integers(0, 4, m), q)[keep]
+    return q, np.concatenate([s, rng.integers(0, 4, n)])[:n].astype(np.uint8)
+
+
+def _recorded_levels(dev, q, s, local, monkeypatch):
+    """The (DevicePair, nodes) of every divide level of one traceback on
+    the card (``mito_align``'s scoring: +10/-8, gaps 20/1)."""
+    seen = []
+    divide = DevicePair.divide_level
+
+    def recorded(self, nodes):
+        seen.append((self, list(nodes)))
+        return divide(self, nodes)
+
+    monkeypatch.setattr(DevicePair, "divide_level", recorded)
+    sub = matrices.constant_scoring(10, -8).padded()
+    hirschberg.align_pair_linear(q, s, sub, 20, 1, local=local, first_residue_opens=False,
+                                 device=dev)
+    monkeypatch.setattr(DevicePair, "divide_level", divide)
+    return seen
+
+
+@pytest.mark.parametrize("shape", ["mito_align", "viral_align"])
+def test_level_kernels_at_benchmark_levels_equal_plain(dev, shape, monkeypatch):
+    """The prologue's boundaries and the split's (j1, j2, v1, v2) on the
+    card equal their plain versions at every level of mito_align's pair
+    shape (16,569 x 16,554 NW) and at the widest level of viral_align's
+    (162,114 x 171,823 SW), from the same K2 outputs."""
+    if shape == "mito_align":
+        q, s = _homolog_pair(16569, 16569, 16554)
+        levels = _recorded_levels(dev, q, s, False, monkeypatch)
+        assert len(levels) >= 5
+    else:
+        q, s = _homolog_pair(162114, 162114, 171823, 0.13, 0.004)
+        levels = _recorded_levels(dev, q, s, True, monkeypatch)
+        levels = [max(levels, key=lambda x: len(x[1]))]
+    for pair, nodes in levels:
+        jobs, tbs = pair.level_jobs(nodes)
+        level = mm_level_cuda.stage(jobs, tbs, dev)
+        got = mm_level_cuda.prologue(level, pair.dtype, pair.Q, pair.R, False)
+        want = mm_level_cuda.prologue_plain(level.table, pair.dtype, pair.Q, pair.R, False)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+        out = ring_block_cuda.ring_block_cuda(pair.q, pair.s, jobs, pair.matrix, pair.Q,
+                                              pair.R, False, *got, codes_checked=True)
+        res = mm_level_cuda.split(level, out.botH, out.botF, pair.Q - pair.R, pair.R)
+        plain = mm_level_cuda.split_plain(level.table, out.botH.cpu(), out.botF.cpu(),
+                                          pair.Q - pair.R, pair.R)
+        assert torch.equal(res.cpu(), plain), (shape, len(nodes))
+        assert res.cpu().tolist() == [list(r) for r in pair.divide_level(nodes)]
+
+
+def test_divide_level_waits_once_on_card(dev):
+    """A divide level on the card synchronises once, at its fetch: the
+    uploads are copies from pinned memory that do not wait, and the
+    prologue, K2 and the split queue behind them."""
+    import warnings
+
+    q, s = _homolog_pair(7, 6000, 5800)
+    pair = DevicePair(q, s, matrices.constant_scoring(10, -8).padded(), 21, 1, device=dev)
+    nodes = [(0, 6000, 0, 5800, False, False)]
+    want = pair.divide_level(nodes)  # builds and loads the kernels
+    torch.cuda.synchronize()
+    before = mm_level_cuda.launches
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = pair.divide_level(nodes)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in syncs]
+    assert got == want and mm_level_cuda.launches == before + 2
+    assert pair.staged_levels == 2
+
+
+def test_traceback_levels_staged_on_card(dev, monkeypatch):
+    """Every device level of a traced traceback on the card is staged: its
+    mm.level span counts ``staged`` 1, two level-kernel launches each, and
+    no span opens under it but its one device.wait; the alignment equals
+    the CPU's host passes'."""
+    monkeypatch.setattr(hirschberg, "DEVICE_MIN_CELLS", 1 << 16)
+    monkeypatch.setattr(hirschberg, "LEAF_CELLS", 1 << 14)
+    q, s = _homolog_pair(11, 1500, 1300)
+    sub = matrices.constant_scoring(10, -8).padded()
+    st = SearchStats()
+    before = mm_level_cuda.launches
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = hirschberg.align_pair_linear(q, s, sub, 20, 1, local=False, stats=st,
+                                           first_residue_opens=False, device=dev)
+    levels = [i for i, x in enumerate(st.spans) if x.name == "mm.level"]
+    on_card = [i for i in levels if st.spans[i].counts["device"]]
+    assert on_card and all(st.spans[i].counts["staged"] == 1 for i in on_card)
+    assert mm_level_cuda.launches - before == 2 * len(on_card)
+    for i in on_card:
+        kids = [x.name for x in st.spans if x.parent == i]
+        assert kids == ["device.wait"]
+    want = hirschberg.align_pair_linear(q, s, sub, 20, 1, local=False,
+                                        first_residue_opens=False, device="cpu")
     assert (got.score, got.cigar) == (want.score, want.cigar)
 
 

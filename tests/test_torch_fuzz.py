@@ -36,7 +36,7 @@ from libssa_tpu_torch.constants import (
     AA_ALPHABET, NT_ALPHABET, AlignType, BitWidth, ComputeMode, Strand, SymType)
 from libssa_tpu_torch.io.db import PAD_CODE
 from libssa_tpu_torch.ops import interseq, longpair_cuda, ring_block, ring_block_cuda
-from libssa_tpu_torch.ops.mm_device import open_edge
+from libssa_tpu_torch.ops.mm_level_cuda import open_edge
 from libssa_tpu_torch.ops.scoring import make_padded_profile
 
 torch.set_num_threads(1)
@@ -212,7 +212,7 @@ def _size(rng, hi: int) -> int:
 
 def _edges(rng, q, s, Q, R, local, dt, kind):
     """A tile's boundaries (leftH, leftE, topH, topF) as K2's callers make
-    them: SW's zeros or NW's open edges (``mm_device.open_edge``) ("open"),
+    them: SW's zeros or NW's open edges (``mm_level_cuda.open_edge``) ("open"),
     or the edges carried out of a tile to its left and one above it, each
     run by the plain version from open edges ("carried")."""
     rows, cols = len(q), len(s)

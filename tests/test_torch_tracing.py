@@ -134,8 +134,10 @@ def test_linear_aligner_records_its_levels(monkeypatch, on_device):
     assert spans[0].name == "mm.align" and spans[0].parent is None
     levels = [x for x in spans if x.name == "mm.level"]
     assert len(levels) >= 2 and all(x.parent == 0 for x in levels)
-    assert levels[0].counts == {"nodes": 1, "cells": 300 * 280, "device": on_device}
+    assert levels[0].counts == {"nodes": 1, "cells": 300 * 280, "device": on_device,
+                                "staged": 0}
     assert all(x.counts["device"] == on_device for x in levels)
+    assert all(x.counts["staged"] == 0 for x in levels)  # the level kernels run on a card
     waits = [x for x in spans if x.name == "device.wait"]
     assert bool(waits) == on_device
     assert all(spans[w.parent].name in ("mm.level", "mm.leaves") for w in waits)
